@@ -1,0 +1,345 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's tiered paged-KV server on one NVIDIA GPU.
+
+Run from the repository root with no arguments:
+
+    python3 chip_smoke.py
+
+Phases (any failure exits non-zero; no phase is caught and passed over):
+
+1. torch / CUDA versions and the card's name and power limit;
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed);
+3. hold each kernel against its plain PyTorch version on the card, exactly,
+   at the serving path's shapes and at the shapes of tests/test_kernels.py;
+4. serve at Qwen1.5-0.5B's full KV width (24 groups, 16 KV heads, d_head
+   64, bf16): the ``serve_tiered`` burst, then the ``kv_tiering`` pressure
+   burst with Radiant and with immobile tables, each with the launch
+   counts set to 0 just before it and read just after;
+5. re-run both pressure bursts on the CPU through the plain versions and
+   require the card's final state to equal the CPU's, field for field;
+6. time each kernel, its plain version and a one-call PyTorch yardstick
+   with CUDA events, beside the least time the card could take;
+7. print the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
+
+Without a CUDA device it exits 1 and prints no result.
+"""
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12       # H100 SXM device memory (NVIDIA data sheet)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import configs
+    from repro_torch.kernels import build, ops, ref
+    from repro_torch.memsys import tiered_kv as tkv
+    from repro_torch.serving import serve_tiered as st
+
+    dev = torch.device("cuda")
+    t_start = time.perf_counter()
+
+    # -- 1. toolchain and card ------------------------------------------------
+    card = card_line()
+    log(f"[1] python {sys.version.split()[0]} torch {torch.__version__} "
+        f"cuda {torch.version.cuda} device {torch.cuda.get_device_name(0)} "
+        f"count {torch.cuda.device_count()}")
+    log(f"[1] nvidia-smi: {card}")
+
+    # -- 2. build -------------------------------------------------------------
+    built = build.build()
+    log(f"[2] built {built.path.name} in {built.seconds:.2f} s")
+    for line in built.log.splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"[2]   ptxas: {line.strip()}")
+
+    # -- 3. kernels against their plain versions ------------------------------
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    err = {"pt_walk": 0.0, "block_copy": 0.0}
+
+    def randint(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=gen,
+                             dtype=torch.int32).to(dev)
+
+    def walk_case(rows, n_leaf, max_leaf, fanout, n, strided=False):
+        """``strided``: entries as the engine passes them, the slot column
+        of a [n_leaf, F, 2] (tier, slot) table."""
+        upper = randint(-1, n_leaf, (rows, max_leaf))
+        ltier = randint(-1, 2, (n_leaf,))
+        if strided:
+            lent = randint(-1, 4096, (n_leaf, fanout, 2))[:, :, 1]
+        else:
+            lent = randint(-1, 4096, (n_leaf, fanout))
+        vb = randint(0, max_leaf * fanout, (n,))
+        got = ops.pt_walk(upper, ltier, lent, vb)
+        want = ref.pt_walk_ref(upper, ltier, lent, vb)
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), f"pt_walk {rows}x{max_leaf} n={n}")
+            err["pt_walk"] = max(err["pt_walk"], float((g - w).abs().max()))
+        return upper, ltier, lent, vb
+
+    def copy_case(G, p_src, p_dst, tail, m, dtype):
+        src = torch.randn((G, p_src) + tail, generator=gen).to(dtype).to(dev)
+        dst = torch.randn((G, p_dst) + tail, generator=gen).to(dtype).to(dev)
+        ids = torch.stack([torch.randperm(p_src, generator=gen)[:m],
+                           torch.randperm(p_dst, generator=gen)[:m]],
+                          1).to(torch.int32).to(dev)
+        want = ref.block_copy_ref(src, dst.clone(), ids)
+        got = ops.block_copy(src, dst, ids)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"block_copy {G}x{p_src}->{p_dst} m={m}")
+        err["block_copy"] = max(err["block_copy"],
+                                float((got.float() - want.float()).abs().max()))
+
+    geo = configs.KV
+    tail = (geo.block_size, geo.kv_heads, geo.head_dim)
+    # the decode tick's walk: 4 active rows, FANOUT 64, max_blocks queries
+    for burst in (st.SERVE_TIERED, st.PRESSURE):
+        max_blocks = -(-burst.max_seq // geo.block_size)
+        max_leaf = -(-max_blocks // tkv.FANOUT)
+        walk_case(burst.active_slots, burst.n_seqs * max_leaf, max_leaf,
+                  tkv.FANOUT, max_blocks, strided=True)
+    # tests/test_kernels.py's walk shapes (n_leaf, fanout, n)
+    for n_leaf, fanout, n in [(4, 64, 256), (16, 64, 512), (8, 128, 1024),
+                              (8, 128, 512), (8, 128, 768), (8, 64, 5),
+                              (8, 64, 100), (8, 64, 300), (8, 64, 257),
+                              (8, 64, 769)]:
+        walk_case(1, n_leaf, n_leaf, fanout, n)
+    # the migration copy at full width: cold -> hot and hot -> cold pools
+    copy_case(geo.n_groups, 2048, 256, tail, 10, geo.dtype)
+    copy_case(geo.n_groups, 48, 1024, tail, 8, geo.dtype)
+    # tests/test_kernels.py's copy shapes (P, bs, KH, Dh, M), f32 and bf16
+    for dtype in (torch.float32, torch.bfloat16):
+        for P, bs, KH, Dh, M in [(8, 8, 1, 128, 1), (16, 16, 2, 128, 5),
+                                 (32, 8, 4, 256, 12)]:
+            copy_case(1, P, P, (bs, KH, Dh), M, dtype)
+    log(f"[3] kernels equal their plain versions on the card "
+        f"(max abs err {err})")
+    torch.cuda.empty_cache()
+
+    # -- 4. the served bursts (the main path) ---------------------------------
+    runs = [("serve_tiered", st.SERVE_TIERED, True),
+            ("kv_tiering/radiant", st.PRESSURE, True),
+            ("kv_tiering/immobile", st.PRESSURE, False)]
+    served, launches = {}, {"pt_walk": 0, "block_copy": 0}
+    # warm-up at reduced width: PyTorch loads its CUDA kernels lazily, and
+    # the first burst's clock should not carry that one-time cost
+    st.serve(st.PRESSURE, geometry=configs.REDUCED)
+    for name, burst, radiant in runs:
+        ops.reset_launches()
+        res = st.serve(burst, radiant=radiant)
+        counts = ops.launch_counts()
+        s = res.stats
+        kvs = [int(x) for x in res.engine.kv.stats]
+        n_req = len(burst.prompts)
+        log(f"[4] {name}: requests {n_req} ticks {s.steps} tokens {s.tokens} "
+            f"swaps {s.swaps_in}/{s.swaps_out} cold_walks {s.cold_walks} "
+            f"violations {res.violations} kv.stats {kvs} launches {counts} "
+            f"prefill {res.prefill_s:.3f} s decode {res.decode_s:.3f} s "
+            f"({res.tokens_per_s:.1f} tok/s)")
+        check(all(r.state == "done" for r in res.engine.requests.values()),
+              f"{name}: requests left undone")
+        check(s.tokens == n_req * burst.max_new, f"{name}: tokens {s.tokens}")
+        if radiant:
+            check(s.cold_walks == 0, f"{name}: cold_walks {s.cold_walks}")
+            check(res.violations == 0, f"{name}: violations {res.violations}")
+        else:
+            check(s.cold_walks > 0, f"{name}: immobile tables walked no "
+                                    f"cold leaf page")
+        check(counts["pt_walk"] == s.steps,
+              f"{name}: pt_walk launches {counts['pt_walk']} != ticks {s.steps}")
+        moved = kvs[tkv.STAT_BLK_PROMOTE] + kvs[tkv.STAT_BLK_DEMOTE]
+        check(counts["block_copy"] > 0 and counts["block_copy"] % 2 == 0
+              and counts["block_copy"] <= 2 * moved,
+              f"{name}: block_copy launches {counts['block_copy']} for "
+              f"{moved} moved blocks")
+        for k in launches:
+            launches[k] += counts[k]
+        served[name] = (res, counts, moved)
+    torch.cuda.empty_cache()
+
+    # -- 5. the pressure bursts again on the CPU, through the plain versions --
+    for name, burst, radiant in runs[1:]:
+        cpu = st.serve(burst, radiant=radiant, device="cpu")
+        gpu = served[name][0]
+        check(dataclasses.asdict(cpu.stats) == dataclasses.asdict(gpu.stats),
+              f"{name}: EngineStats differ from the CPU run")
+        for f in tkv.FIELDS:
+            check(torch.equal(getattr(gpu.engine.kv, f).cpu(),
+                              getattr(cpu.engine.kv, f)),
+                  f"{name}: field {f} differs from the CPU run")
+        log(f"[5] {name}: card state == CPU state on all {len(tkv.FIELDS)} "
+            f"fields (CPU decode {cpu.decode_s:.3f} s)")
+    del cpu, gpu
+    served = {k: v for k, v in served.items() if k == "serve_tiered"}
+    torch.cuda.empty_cache()
+
+    # -- 6. timing ------------------------------------------------------------
+    def device_ms(calls, reps=50, rounds=7):
+        """Median device time per call: ``reps`` calls captured in one CUDA
+        graph (so host launch cost is left out), replayed ``rounds`` times
+        between CUDA events."""
+        calls()
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            calls()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(reps):
+                calls()
+        graph.replay()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(rounds):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            graph.replay()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / reps)
+        return statistics.median(times)
+
+    def host_ms(calls, reps=200):
+        """Wall time per eager call, launch overhead included."""
+        calls()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            calls()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    def walk_bytes(upper, lent, vb):
+        """Bytes the walk must move on these inputs, each word once: the
+        upper rows and the queries, the tier of each leaf page reached and
+        each entry gathered, both [R, N] outputs."""
+        fanout = lent.shape[1]
+        vbl = vb.long()
+        li = vbl // fanout
+        leaf = upper.long()[:, li.clamp(max=upper.shape[1] - 1)]
+        ok = (li < upper.shape[1]) & (leaf >= 0) & (leaf < lent.shape[0])
+        reached = leaf[ok]
+        entries = (leaf * fanout + vbl % fanout)[ok]
+        return 4 * (upper.numel() + vb.numel() + reached.unique().numel()
+                    + entries.unique().numel() + 2 * leaf.numel())
+
+    # pt_walk at the serve_tiered decode tick's shape and entry layout
+    b = st.SERVE_TIERED
+    max_blocks = -(-b.max_seq // geo.block_size)
+    max_leaf = -(-max_blocks // tkv.FANOUT)
+    upper, ltier, lent, vb = walk_case(b.active_slots, b.n_seqs * max_leaf,
+                                       max_leaf, tkv.FANOUT, max_blocks,
+                                       strided=True)
+    walk = dict(
+        ms=device_ms(lambda: ops.pt_walk(upper, ltier, lent, vb)),
+        plain_ms=device_ms(lambda: ref.pt_walk_ref(upper, ltier, lent, vb)),
+        call_ms=host_ms(lambda: ops.pt_walk(upper, ltier, lent, vb)),
+        bound_ms=walk_bytes(upper, lent, vb) / HBM_BYTES_PER_S * 1e3,
+        library_ms=None,
+        shape=f"R={upper.shape[0]} max_leaf={max_leaf} "
+              f"n_leaf={ltier.numel()} F={tkv.FANOUT} N={vb.numel()}")
+
+    # block_copy at the serve_tiered burst's mean pairs per launch, cold ->
+    # hot at full width; id sets rotate so the 50 MB L2 does not serve reuse
+    res, counts, moved = served["serve_tiered"]
+    m = max(1, round(moved / (counts["block_copy"] / 2)))
+    del served, res
+    torch.cuda.empty_cache()
+    src = torch.randn((geo.n_groups, b.n_cold) + tail, dtype=geo.dtype,
+                      device=dev,
+                      generator=torch.Generator(device=dev).manual_seed(1))
+    dst = torch.zeros((geo.n_groups, b.n_hot) + tail, dtype=geo.dtype,
+                      device=dev)
+
+    def id_sets(m, k=32):
+        return [torch.stack([torch.randperm(b.n_cold, generator=gen)[:m],
+                             torch.randperm(b.n_hot, generator=gen)[:m]],
+                            1).to(torch.int32).to(dev) for _ in range(k)]
+
+    def copy_times(m):
+        sets = id_sets(m)
+        cyc = itertools.cycle(sets)
+        copy_bytes = 2 * m * src[:, 0].numel() * src.element_size()
+
+        def library():
+            ids = next(cyc)
+            dst[:, ids[:, 1]] = src[:, ids[:, 0]]
+
+        return dict(
+            ms=device_ms(lambda: ops.block_copy(src, dst, next(cyc))),
+            plain_ms=device_ms(lambda: ref.block_copy_ref(src, dst, next(cyc))),
+            library_ms=device_ms(library),
+            call_ms=host_ms(lambda: ops.block_copy(src, dst, next(cyc))),
+            bound_ms=copy_bytes / HBM_BYTES_PER_S * 1e3,
+            shape=f"G={geo.n_groups} P={b.n_cold}->{b.n_hot} "
+                  f"block={tail} {geo.dtype} M={m}")
+
+    copy = copy_times(m)
+    big = copy_times(128)
+    for name, t in (("pt_walk", walk), ("block_copy", copy),
+                    ("block_copy (M=128)", big)):
+        log(f"[6] {name} [{t['shape']}]: kernel {t['ms']:.5f} ms "
+            f"(eager call {t['call_ms']:.5f} ms) plain {t['plain_ms']:.5f} ms "
+            f"library {t['library_ms']} bound {t['bound_ms']:.6f} ms")
+    gbps = 2 * 128 * src[:, 0].numel() * src.element_size() / big["ms"] / 1e6
+    log(f"[6] block_copy M=128 moves {gbps:.0f} GB/s "
+        f"({gbps / (HBM_BYTES_PER_S / 1e9):.2f} of 3.35 TB/s)")
+    log(f"[6] total wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 7. result lines ------------------------------------------------------
+    kernels = []
+    for name, t, replaces in (
+            ("pt_walk", walk, "src/repro/kernels/pt_walk.py:44"),
+            ("block_copy", copy, "src/repro/kernels/block_copy.py:25")):
+        kernels.append(dict(
+            name=name, route="cuda",
+            source=f"src/repro_torch/kernels/csrc/{name}.cu",
+            replaces=replaces, launches=launches[name],
+            max_abs_err=err[name], ms=t["ms"], plain_ms=t["plain_ms"],
+            bound_ms=t["bound_ms"], bound_by="bytes",
+            library_ms=t["library_ms"]))
+    log(card)
+    log(json.dumps({"kernels": kernels}))
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,108 @@
+"""Public wrappers of the port's kernels (twin of the JAX package's
+``kernels/ops.py``).
+
+Each wrapper checks device, dtype, shape and contiguity, then dispatches
+on where the tensors lie: on a CUDA device it launches the hand-written
+kernel (and raises if the launch fails), on the CPU it runs the plain
+version in :mod:`.ref`.  There is no other route and no fallback.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+from . import block_copy as _block_copy
+from . import pt_walk as _pt_walk
+from . import ref
+
+
+def _check(cond: bool, name: str, msg: str) -> None:
+    if not cond:
+        raise ValueError(f"{name}: {msg}")
+
+
+def _same_device(name: str, *tensors) -> torch.device:
+    dev = tensors[0].device
+    _check(all(t.device == dev for t in tensors), name,
+           f"tensors lie on different devices: {[str(t.device) for t in tensors]}")
+    _check(dev.type in ("cuda", "cpu"), name, f"unsupported device {dev}")
+    return dev
+
+
+def pt_walk(upper, leaf_tier, leaf_entries, vb):
+    """Walk the two-level table (see ``ref.pt_walk_ref``).
+
+    ``upper`` is one row ``i32[max_leaf]`` -> outputs ``i32[N]``, or a
+    batch of rows ``i32[R, max_leaf]`` -> ``i32[R, N]`` in one launch.
+    ``leaf_entries`` may be a strided view (e.g. the slot column of a
+    ``[n_leaf, F, 2]`` table); the other tensors must be contiguous.
+    """
+    name = "pt_walk"
+    dev = _same_device(name, upper, leaf_tier, leaf_entries, vb)
+    for t in (upper, leaf_tier, leaf_entries, vb):
+        _check(t.dtype == torch.int32, name, f"needs int32, got {t.dtype}")
+    for t in (upper, leaf_tier, vb):
+        _check(t.is_contiguous(), name, "needs contiguous tensors")
+    _check(upper.dim() in (1, 2), name, f"upper must be 1-D or 2-D, got {tuple(upper.shape)}")
+    _check(leaf_entries.dim() == 2, name, "leaf_entries must be [n_leaf, F]")
+    _check(leaf_tier.shape == leaf_entries.shape[:1], name,
+           "leaf_tier must be [n_leaf] like leaf_entries")
+    _check(vb.dim() == 1, name, "vb must be [N]")
+    if dev.type == "cpu":
+        return ref.pt_walk_ref(upper, leaf_tier, leaf_entries, vb)
+    tier, slot = _pt_walk.pt_walk_cuda(upper.reshape(-1, upper.shape[-1]),
+                                       leaf_tier, leaf_entries, vb)
+    if upper.dim() == 1:
+        return tier[0], slot[0]
+    return tier, slot
+
+
+def block_copy(src_pool, dst_pool, ids):
+    """``dst_pool[..., ids[m,1]] = src_pool[..., ids[m,0]]`` in place;
+    returns ``dst_pool``.
+
+    Pools are ``[P, bs, KH, Dh]`` or ``[G, P, bs, KH, Dh]`` (one launch for
+    all groups); the two may differ in ``P`` only, and must be different
+    tensors.  A block's size in bytes and both pools' base addresses must
+    be multiples of 16 (the kernel moves 16-byte vectors).  ``ids`` is
+    ``i32[M, 2]`` (src, dst), in range, destinations distinct.
+    """
+    name = "block_copy"
+    dev = _same_device(name, src_pool, dst_pool, ids)
+    _check(src_pool.dtype == dst_pool.dtype, name,
+           f"pool dtypes differ: {src_pool.dtype} vs {dst_pool.dtype}")
+    _check(src_pool.dim() == dst_pool.dim() and src_pool.dim() in (4, 5), name,
+           "pools must both be [P, bs, KH, Dh] or both [G, P, bs, KH, Dh]")
+    lead = src_pool.dim() - 4
+    _check(src_pool.shape[:lead] == dst_pool.shape[:lead]
+           and src_pool.shape[lead + 1:] == dst_pool.shape[lead + 1:], name,
+           f"pools differ beyond P: {tuple(src_pool.shape)} vs {tuple(dst_pool.shape)}")
+    _check(src_pool.is_contiguous() and dst_pool.is_contiguous()
+           and ids.is_contiguous(), name, "needs contiguous tensors")
+    _check(ids.dtype == torch.int32 and ids.dim() == 2 and ids.shape[1] == 2,
+           name, f"ids must be int32 [M, 2], got {ids.dtype} {tuple(ids.shape)}")
+    _check(src_pool.data_ptr() != dst_pool.data_ptr(), name,
+           "source and destination must be different pools")
+    block_bytes = math.prod(src_pool.shape[lead + 1:]) * src_pool.element_size()
+    _check(block_bytes % 16 == 0, name,
+           f"a block of {block_bytes} B is not a multiple of 16 B")
+    _check(src_pool.data_ptr() % 16 == 0 and dst_pool.data_ptr() % 16 == 0,
+           name, "pools must start on a 16-byte boundary")
+    if dev.type == "cpu":
+        return ref.block_copy_ref(src_pool, dst_pool, ids)
+    if lead == 0:
+        _block_copy.block_copy_cuda(src_pool[None], dst_pool[None], ids)
+    else:
+        _block_copy.block_copy_cuda(src_pool, dst_pool, ids)
+    return dst_pool
+
+
+def launch_counts() -> dict:
+    """Kernel launches per kernel since the last :func:`reset_launches`."""
+    return {"pt_walk": _pt_walk.launches, "block_copy": _block_copy.launches}
+
+
+def reset_launches() -> None:
+    _pt_walk.launches = 0
+    _block_copy.launches = 0

@@ -1,0 +1,71 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Imports no JAX, so it also runs where only PyTorch is installed:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda tests/test_torch_cuda.py
+
+(``--noconftest``: tests/conftest.py reaches the JAX package.)  Without a
+CUDA device every test here skips.
+"""
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+
+# (n_leaf, fanout, n): the walk shapes of tests/test_kernels.py
+WALK_SHAPES = [(4, 64, 256), (16, 64, 512), (8, 128, 1024), (8, 128, 512),
+               (8, 128, 768), (8, 64, 5), (8, 64, 100), (8, 64, 300),
+               (8, 64, 257), (8, 64, 769)]
+# (G, P_src, P_dst, M) over [bs 16, KH 16, Dh 64] blocks, Qwen1.5-0.5B's
+COPY_SHAPES = [(1, 8, 8, 1), (24, 64, 16, 8), (3, 7, 9, 5)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU with nvcc: the CUDA kernels have no "
+                    "CPU mode (their plain versions are tested against JAX "
+                    "in tests/test_torch_kernels.py)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_pt_walk_kernel_matches_plain_version(cuda_device):
+    gen = torch.Generator().manual_seed(7)
+    ops.reset_launches()
+    for rows in (1, 4):
+        for n_leaf, fanout, n in WALK_SHAPES:
+            args = [torch.randint(-1, n_leaf, (rows, n_leaf), generator=gen),
+                    torch.randint(-1, 2, (n_leaf,), generator=gen),
+                    torch.randint(-1, 64, (n_leaf, fanout, 2), generator=gen),
+                    torch.randint(0, n_leaf * fanout, (n,), generator=gen)]
+            args = [a.to(torch.int32) for a in args]
+            dev_args = [a.to(cuda_device) for a in args]
+            # the 4-row walks read their entries as the engine does: the
+            # slot column of a [n_leaf, F, 2] table, through its strides
+            pick = (lambda e: e[:, :, 1]) if rows == 4 else (
+                lambda e: e[:, :, 1].contiguous())
+            args[2], dev_args[2] = pick(args[2]), pick(dev_args[2])
+            want = ref.pt_walk_ref(*args)
+            got = ops.pt_walk(*dev_args)
+            for g, w in zip(got, want):
+                assert torch.equal(g.cpu(), w)
+    assert ops.launch_counts()["pt_walk"] == 2 * len(WALK_SHAPES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_copy_kernel_matches_plain_version(cuda_device, dtype):
+    gen = torch.Generator().manual_seed(7)
+    ops.reset_launches()
+    for G, p_src, p_dst, M in COPY_SHAPES:
+        src = torch.randn(G, p_src, 16, 16, 64, generator=gen).to(dtype)
+        dst = torch.randn(G, p_dst, 16, 16, 64, generator=gen).to(dtype)
+        ids = torch.stack([torch.randperm(p_src, generator=gen)[:M],
+                           torch.randperm(p_dst, generator=gen)[:M]],
+                          1).to(torch.int32)
+        want = ref.block_copy_ref(src, dst.clone(), ids)
+        got = ops.block_copy(src.to(cuda_device), dst.to(cuda_device),
+                             ids.to(cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu(), want)
+    assert ops.launch_counts()["block_copy"] == len(COPY_SHAPES)

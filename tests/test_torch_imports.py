@@ -1,0 +1,45 @@
+"""The port stands alone: no JAX, nothing of the JAX package, and no
+silent move to the CPU."""
+import pathlib
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
+PORT = SRC / "repro_torch"
+MODULES = ["repro_torch", "repro_torch.kernels.ops", "repro_torch.kernels.build",
+           "repro_torch.memsys.tiered_kv", "repro_torch.serving.engine",
+           "repro_torch.serving.serve_tiered", "repro_torch.configs"]
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                       re.MULTILINE)
+
+
+def test_no_source_imports_jax_or_repro():
+    files = sorted(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    assert len(files) >= 10
+    bad = [str(f) for f in files if FORBIDDEN.search(f.read_text())]
+    assert bad == []
+
+
+def test_import_leaves_jax_out():
+    code = ("import sys\n"
+            + "".join(f"import {m}\n" for m in MODULES)
+            + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+              "('jax', 'jaxlib', 'repro'))\n"
+              "assert not bad, bad\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.serving import serve_tiered as st
+    from repro_torch.serving.engine import TieredServingEngine
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="is_available"):
+        TieredServingEngine(n_groups=1, kv_heads=1, head_dim=8)
+    with pytest.raises(RuntimeError, match="is_available"):
+        st.serve(st.PRESSURE)
