@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's tiered paged-KV server on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's tiered paged-KV server and its paged decode
+attention on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -19,7 +20,15 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    require the card's final state to equal the CPU's, field for field;
 6. time each kernel, its plain version and a one-call PyTorch yardstick
    with CUDA events, beside the least time the card could take;
-7. print the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
+7. decode attention through ``ops.paged_attention``: (a) the kernel
+   against its plain version at the shapes of tests/test_kernels.py, with
+   -1 table entries past each length and a row of length 0 (f32 and
+   bf16); (b) at Qwen1.5-0.5B's (16 / 16 / 64) and Qwen2.5-14B's (40 / 8 /
+   128) full attention widths in bf16, 8 sequences of up to 4096 / 8192
+   tokens, the launch counts set to 0 just before each call and read just
+   after; (c) the kernel, its plain version and
+   ``scaled_dot_product_attention`` on K/V gathered beforehand, timed;
+8. print the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -56,7 +65,9 @@ def check(cond: bool, what: str) -> None:
 
 
 def main() -> int:
+    import numpy as np
     import torch
+    import torch.nn.functional as F
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs an NVIDIA GPU", file=sys.stderr)
@@ -80,9 +91,16 @@ def main() -> int:
     # -- 2. build -------------------------------------------------------------
     built = build.build()
     log(f"[2] built {built.path.name} in {built.seconds:.2f} s")
+    # one line per kernel entry: its (mangled) name, registers and spills
+    name = spill = ""
     for line in built.log.splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[2]   ptxas: {line.strip()}")
+        if "Function properties for" in line:
+            name = line.split("for", 1)[1].strip()
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "registers" in line:
+            log(f"[2]   ptxas: {name}: {line.split(':', 1)[1].strip()}; "
+                f"{spill}")
 
     # -- 3. kernels against their plain versions ------------------------------
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -136,6 +154,15 @@ def main() -> int:
                               (8, 64, 100), (8, 64, 300), (8, 64, 257),
                               (8, 64, 769)]:
         walk_case(1, n_leaf, n_leaf, fanout, n)
+    # queries past the upper row and below zero, a leaf id past the table:
+    # JAX's answer (tests/test_torch_kernels.py holds it to the TPU kernel)
+    oor = [torch.tensor(a, dtype=torch.int32, device=dev) for a in (
+        [5, -1, 0, 1], [0, 1, 1], [[0, 1, 2, 3], [4, 5, 6, 7], [8, 9, 10, 11]],
+        [0, 5, 17, 40, -1, -100, -17, 3])]
+    tier, slot = ops.pt_walk(*oor)
+    check(tier.tolist() == [1, -1, 1, 1, 1, 1, 1, 1]
+          and slot.tolist() == [8, -1, 5, 4, 7, 8, 11, 11],
+          f"pt_walk out-of-range queries: {tier.tolist()} {slot.tolist()}")
     # the migration copy at full width: cold -> hot and hot -> cold pools
     copy_case(geo.n_groups, 2048, 256, tail, 10, geo.dtype)
     copy_case(geo.n_groups, 48, 1024, tail, 8, geo.dtype)
@@ -320,12 +347,149 @@ def main() -> int:
     log(f"[6] block_copy M=128 moves {gbps:.0f} GB/s "
         f"({gbps / (HBM_BYTES_PER_S / 1e9):.2f} of 3.35 TB/s)")
     log(f"[6] total wall {time.perf_counter() - t_start:.1f} s")
+    del src, dst
+    torch.cuda.empty_cache()
 
-    # -- 7. result lines ------------------------------------------------------
+    # -- 7. paged attention through ops.paged_attention -----------------------
+    from repro_torch.configs import qwen1_5_0_5b, qwen2_5_14b
+    torch.backends.cuda.matmul.allow_tf32 = False   # the plain version in f32
+    tol = {torch.float32: 1e-5, torch.bfloat16: 2e-2}  # tests/test_kernels.py
+    err["paged_attention"] = 0.0
+
+    def attn_inputs(*args):
+        return ref.paged_attention_inputs(*args, device=dev)
+
+    def attn_check(what, args, got=None, kernel=True):
+        """``got`` against the plain version; ``kernel``: ``got`` came from
+        the kernel, so its error counts in the ``kernels`` line."""
+        if got is None:
+            got = ops.paged_attention(*args)
+        want = ref.paged_attention_public(*args)
+        torch.cuda.synchronize()
+        check(got.shape == want.shape and got.dtype == want.dtype
+              and bool(torch.isfinite(got).all()), f"{what}: shape or dtype "
+              f"{tuple(got.shape)} {got.dtype}, or non-finite values")
+        diff = (got.float() - want.float()).abs()
+        t = tol[got.dtype]
+        check(bool((diff <= t + t * want.float().abs()).all()),
+              f"{what}: max abs err {float(diff.max())} over tolerance {t}")
+        if kernel:
+            err["paged_attention"] = max(err["paged_attention"],
+                                         float(diff.max()))
+        return float(diff.max())
+
+    # (a) test shapes: test_paged_attention_sweep's four and two groups run
+    # on larger instances, -1 entries past each length, and a row with
+    # lengths == 0 (the oracle's uniform mean)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    rng = np.random.default_rng(42)
+    for dtype in (torch.float32, torch.bfloat16):
+        for B, KH, G, Dh, P, bs, NB in [(1, 1, 1, 128, 8, 8, 2),
+                                        (2, 2, 4, 128, 16, 16, 4),
+                                        (3, 4, 2, 256, 32, 8, 5),
+                                        (2, 2, 8, 128, 16, 32, 3),
+                                        # G = 3 / 7 on the G = 4 / 8
+                                        # instances, the rows past G masked
+                                        (2, 2, 3, 64, 16, 16, 4),
+                                        (3, 1, 7, 128, 24, 8, 6)]:
+            lengths = rng.integers(1, NB * bs + 1, B)
+            args = attn_inputs(B, KH, G, Dh, P, bs, NB, dtype, lengths, B * NB)
+            worst[dtype] = max(worst[dtype], attn_check(
+                f"attention {B}x{KH}x{G}x{Dh} P{P} bs{bs} NB{NB} {dtype}", args))
+        args = attn_inputs(3, 2, 2, 64, 40, 8, 6, dtype, [9, 48, 20], 7)
+        check(bool((args[3] == -1).any()), "no -1 entry in the table")
+        worst[dtype] = max(worst[dtype], attn_check(f"attention -1 past length "
+                                                    f"{dtype}", args))
+        args = attn_inputs(3, 2, 2, 64, 12, 8, 4, dtype, [9, 32, 0], 8)
+        got = ops.paged_attention(*args)
+        worst[dtype] = max(worst[dtype], attn_check(
+            f"attention lengths == 0 {dtype}", args, got))
+        blocks = args[3][2].clamp(min=0)
+        mean = args[2][:, blocks].float().reshape(2, -1, 64).mean(1)
+        check(bool(torch.allclose(got[2].float().reshape(2, 2, 64),
+                                  mean[:, None].expand(2, 2, 64),
+                                  atol=tol[dtype], rtol=tol[dtype])),
+              f"attention lengths == 0 {dtype}: not the uniform mean of V")
+    log(f"[7] attention kernel == plain version at the test shapes, -1 "
+        f"entries and lengths == 0 (max abs err f32 {worst[torch.float32]:.3g}"
+        f" tol 1e-5, bf16 {worst[torch.bfloat16]:.3g} tol 2e-2)")
+
+    # (b) full width, bf16, bs 16, 8 sequences, through ops.paged_attention
+    widths = [("Qwen1.5-0.5B", qwen1_5_0_5b.N_HEADS, qwen1_5_0_5b.N_KV_HEADS,
+               qwen1_5_0_5b.HEAD_DIM, 256, 2304),
+              ("Qwen2.5-14B", qwen2_5_14b.N_HEADS, qwen2_5_14b.N_KV_HEADS,
+               qwen2_5_14b.HEAD_DIM, 512, 4352)]
+    B, bs = 8, 16
+    attn, attn_launches = {}, 0
+    for name, H, KH, Dh, NB, P in widths:
+        lengths = np.random.default_rng(0).integers(1, NB * bs + 1, B)
+        lengths[:3] = NB * bs, 1, (lengths[2] - 1) // bs * bs + bs // 2
+        args = attn_inputs(B, KH, H // KH, Dh, P, bs, NB, torch.bfloat16,
+                           lengths, 0)
+        ops.reset_launches()
+        out = ops.paged_attention(*args)
+        counts = ops.launch_counts()
+        check(counts["paged_attention"] == 1,
+              f"{name}: {counts['paged_attention']} attention launches for 1 call")
+        attn_launches += counts["paged_attention"]
+        e = attn_check(f"attention {name} full width", args, out)
+        f32 = [a.float() if a.is_floating_point() else a for a in args]
+        e32 = attn_check(f"attention {name} full width f32", f32)
+        del f32
+        attn[name] = dict(args=args, lengths=lengths, H=H, KH=KH, Dh=Dh, NB=NB)
+        log(f"[7] {name}: B {B} H {H} KH {KH} Dh {Dh} bs {bs} NB {NB} P {P} "
+            f"{args[1].numel() * 2 / 1e6:.1f} MB per pool, lengths "
+            f"{lengths.tolist()} launches {counts} out {tuple(out.shape)} "
+            f"max abs err bf16 {e:.3g} (tol 2e-2), f32 {e32:.3g} (tol 1e-5)")
+    torch.cuda.empty_cache()
+
+    # (c) timing: kernel, plain version, and SDPA on K/V gathered beforehand
+    for name, a in attn.items():
+        q, kp, vp, tables, lengths_t = a["args"]
+        KH, Dh, NB, H = a["KH"], a["Dh"], a["NB"], a["H"]
+        G = H // KH
+        n_visit = -(-a["lengths"] // bs)
+        elt = kp.element_size()
+        touched = (2 * KH * int(n_visit.sum()) * bs * Dh * elt     # K and V
+                   + 2 * q.numel() * elt + 4 * int(n_visit.sum()) + 4 * B)
+        safe = tables.long().clamp(min=0)
+        k_dense = kp[:, safe].movedim(0, 1).reshape(B, KH, NB * bs, Dh)
+        v_dense = vp[:, safe].movedim(0, 1).reshape(B, KH, NB * bs, Dh)
+        mask = (torch.arange(NB * bs, device=dev)[None, :]
+                < lengths_t[:, None])[:, None, None, :]
+        q4 = q.reshape(B, KH, G, Dh)
+        library = F.scaled_dot_product_attention(q4, k_dense, v_dense,
+                                                 attn_mask=mask)
+        attn_check(f"attention {name}: SDPA yardstick", a["args"],
+                   library.reshape(B, H, Dh), kernel=False)
+        a.update(
+            ms=device_ms(lambda: ops.paged_attention(q, kp, vp, tables,
+                                                     lengths_t)),
+            plain_ms=device_ms(lambda: ref.paged_attention_public(
+                q, kp, vp, tables, lengths_t), reps=5),
+            library_ms=device_ms(lambda: F.scaled_dot_product_attention(
+                q4, k_dense, v_dense, attn_mask=mask), reps=5),
+            call_ms=host_ms(lambda: ops.paged_attention(q, kp, vp, tables,
+                                                        lengths_t)),
+            bound_ms=touched / HBM_BYTES_PER_S * 1e3, bytes=touched)
+        del k_dense, v_dense
+        log(f"[7] {name} attention: kernel {a['ms']:.5f} ms (eager call "
+            f"{a['call_ms']:.5f} ms) plain {a['plain_ms']:.5f} ms library "
+            f"(SDPA, gather excluded) {a['library_ms']:.5f} ms bound "
+            f"{a['bound_ms']:.5f} ms ({touched} B touched); "
+            f"{touched / a['ms'] / 1e6:.0f} GB/s, "
+            f"{a['bound_ms'] / a['ms']:.3f} of 3.35 TB/s")
+    log(f"[7] total wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 8. result lines ------------------------------------------------------
     kernels = []
+    main = attn["Qwen1.5-0.5B"]
+    launches["paged_attention"] = attn_launches
     for name, t, replaces in (
             ("pt_walk", walk, "src/repro/kernels/pt_walk.py:44"),
-            ("block_copy", copy, "src/repro/kernels/block_copy.py:25")):
+            ("block_copy", copy, "src/repro/kernels/block_copy.py:25"),
+            ("paged_attention", main,
+             "src/repro/kernels/paged_attention.py:81")):
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -13,6 +13,7 @@ import dataclasses
 import torch
 
 N_LAYERS = 24
+N_HEADS = 16
 N_KV_HEADS = 16
 HEAD_DIM = 1024 // 16
 

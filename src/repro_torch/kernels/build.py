@@ -35,6 +35,8 @@ SIGNATURES = {
     "block_copy_launch": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
                           _c.c_int, _c.c_int, _c.c_int, _c.c_longlong,
                           _c.c_void_p],
+    "paged_attention_launch": [_c.c_void_p] * 7 + [_c.c_int] * 9
+                              + [_c.c_void_p],
 }
 
 

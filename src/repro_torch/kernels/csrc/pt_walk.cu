@@ -2,10 +2,11 @@
 //
 // Replaces the Pallas TPU kernel `pt_walk_kernel` / `_kernel` in
 // src/repro/kernels/pt_walk.py.  For every row r and query q:
-//   leaf = upper[r, vb[q] / F];  invalid (< 0) -> (-1, -1)
-//   else (leaf_tier[leaf], leaf_entries[leaf, vb[q] % F])
-// A query or leaf id outside the table also gives (-1, -1) instead of a
-// read outside the buffers.
+//   leaf = upper[r, floor(vb[q] / F)];  invalid (< 0) -> (-1, -1)
+//   else (leaf_tier[leaf], leaf_entries[leaf, vb[q] mod F])
+// Out-of-range reads follow JAX's gathers, as the TPU kernel and its
+// oracle do: a negative upper index counts from the end, every index is
+// then clamped into its table, and the entry index is never negative.
 //
 // Bound: launch latency.  On the decode path a call moves a few hundred
 // bytes to a few KB (R rows of the upper table, N = max_blocks queries,
@@ -42,17 +43,17 @@ __global__ void pt_walk_kernel(const int32_t* __restrict__ upper, int max_leaf,
   const int q = blockIdx.x * blockDim.x + threadIdx.x;
   if (q >= n) return;
   const int32_t v = vb[q];
+  int li = v / fanout;                    // C truncates: make it floor
+  if (li * fanout > v) --li;
+  const int e = v - li * fanout;          // v mod F, in [0, F)
+  if (li < 0) li += max_leaf;
+  li = min(max(li, 0), max_leaf - 1);
+  int32_t leaf = row[li];
   int32_t t = -1, s = -1;
-  if (v >= 0) {
-    const int li = v / fanout;
-    if (li < max_leaf) {
-      const int32_t leaf = row[li];
-      if (leaf >= 0 && leaf < n_leaf) {
-        t = leaf_tier[leaf];
-        s = leaf_entries[(int64_t)leaf * entry_stride +
-                         (int64_t)(v - li * fanout) * entry_step];
-      }
-    }
+  if (leaf >= 0) {
+    leaf = min(leaf, n_leaf - 1);
+    t = leaf_tier[leaf];
+    s = leaf_entries[(int64_t)leaf * entry_stride + (int64_t)e * entry_step];
   }
   const int64_t o = (int64_t)r * n + q;
   tier[o] = t;

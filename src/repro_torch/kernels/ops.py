@@ -13,6 +13,7 @@ import math
 import torch
 
 from . import block_copy as _block_copy
+from . import paged_attention as _paged_attention
 from . import pt_walk as _pt_walk
 from . import ref
 
@@ -49,6 +50,8 @@ def pt_walk(upper, leaf_tier, leaf_entries, vb):
     _check(leaf_tier.shape == leaf_entries.shape[:1], name,
            "leaf_tier must be [n_leaf] like leaf_entries")
     _check(vb.dim() == 1, name, "vb must be [N]")
+    _check(upper.shape[-1] > 0 and leaf_entries.shape[0] > 0, name,
+           "the upper row and the leaf table must not be empty")
     if dev.type == "cpu":
         return ref.pt_walk_ref(upper, leaf_tier, leaf_entries, vb)
     tier, slot = _pt_walk.pt_walk_cuda(upper.reshape(-1, upper.shape[-1]),
@@ -98,11 +101,39 @@ def block_copy(src_pool, dst_pool, ids):
     return dst_pool
 
 
+def paged_attention(q, k_pool, v_pool, tables, lengths):
+    """Decode attention over paged KV pools, in the JAX package's public
+    layout: ``q [B, H, Dh]`` with ``H = KH * G``, pools ``[KH, P, bs,
+    Dh]``, ``tables i32[B, NB]``, ``lengths i32[B]`` -> ``[B, H, Dh]``.
+    Query head ``h`` reads KV head ``h // G``.  See
+    ``ref.paged_attention_ref`` for the edge semantics (``-1`` entries,
+    ``lengths == 0``)."""
+    _check(q.dim() == 3, "paged_attention", f"q must be [B, H, Dh], got "
+           f"{tuple(q.shape)}")
+    B, H, Dh = q.shape
+    KH = k_pool.shape[0] if k_pool.dim() == 4 else 0
+    _check(KH > 0 and H % KH == 0, "paged_attention",
+           f"{H} query heads do not group over the pools' KV heads "
+           f"{tuple(k_pool.shape)}")
+    qk = q.reshape(B, KH, H // KH, Dh)
+    if q.device.type == "cpu":
+        _paged_attention.check_args(qk, k_pool, v_pool, tables, lengths)
+        out = ref.paged_attention_ref(qk, k_pool, v_pool, tables, lengths)
+    else:
+        out = _paged_attention.paged_attention_cuda(qk, k_pool, v_pool,
+                                                    tables, lengths)
+    return out.reshape(B, H, Dh)
+
+
 def launch_counts() -> dict:
-    """Kernel launches per kernel since the last :func:`reset_launches`."""
-    return {"pt_walk": _pt_walk.launches, "block_copy": _block_copy.launches}
+    """Calls that launched each kernel since the last
+    :func:`reset_launches` (one ``paged_attention`` call launches its
+    partial and its combine kernel)."""
+    return {"pt_walk": _pt_walk.launches, "block_copy": _block_copy.launches,
+            "paged_attention": _paged_attention.launches}
 
 
 def reset_launches() -> None:
     _pt_walk.launches = 0
     _block_copy.launches = 0
+    _paged_attention.launches = 0

@@ -53,6 +53,23 @@ def test_pt_walk_kernel_matches_plain_version(cuda_device):
 
 
 @pytest.mark.cuda
+def test_pt_walk_kernel_out_of_range_queries(cuda_device):
+    """Queries past the upper row and below zero, a leaf id past the
+    table: the kernel gives JAX's answer, as the plain version does."""
+    args = [torch.tensor(a, dtype=torch.int32) for a in (
+        [5, -1, 0, 1], [0, 1, 1], [[0, 1, 2, 3], [4, 5, 6, 7], [8, 9, 10, 11]],
+        [0, 5, 17, 40, -1, -100, -17, 3])]
+    want = ([1, -1, 1, 1, 1, 1, 1, 1], [8, -1, 5, 4, 7, 8, 11, 11])
+    for upper in (args[0], torch.stack([args[0], torch.full_like(args[0], -1)])):
+        got = ops.pt_walk(upper.to(cuda_device),
+                          *[a.to(cuda_device) for a in args[1:]])
+        plain = ref.pt_walk_ref(upper, *args[1:])
+        for g, p, w in zip(got, plain, want):
+            assert torch.equal(g.cpu(), p)
+            assert g.reshape(-1, 8)[0].tolist() == w
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_block_copy_kernel_matches_plain_version(cuda_device, dtype):
     gen = torch.Generator().manual_seed(7)
@@ -69,3 +86,38 @@ def test_block_copy_kernel_matches_plain_version(cuda_device, dtype):
         torch.cuda.synchronize()
         assert torch.equal(got.cpu(), want)
     assert ops.launch_counts()["block_copy"] == len(COPY_SHAPES)
+
+
+# (B, KH, G, Dh, P, bs, NB): test_paged_attention_sweep's shapes, G = 5,
+# Dh 32 / 64, and G = 3 / 7 (run on the G = 4 / 8 instances, rows masked)
+ATTN_SHAPES = [(1, 1, 1, 128, 8, 8, 2), (2, 2, 4, 128, 16, 16, 4),
+               (3, 4, 2, 256, 32, 8, 5), (2, 2, 8, 128, 16, 32, 3),
+               (2, 2, 5, 64, 64, 16, 12), (4, 3, 1, 32, 48, 8, 9),
+               (2, 2, 3, 64, 16, 16, 4), (3, 1, 7, 128, 24, 8, 6)]
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_attention_kernel_matches_plain_version(cuda_device, dtype):
+    gen = torch.Generator().manual_seed(7)
+    tol = ATTN_TOL[dtype]
+    cases = [ref.paged_attention_inputs(
+        *shape, dtype, torch.randint(1, shape[6] * shape[5] + 1, (shape[0],),
+                                     generator=gen), seed)
+        for seed, shape in enumerate(ATTN_SHAPES)]
+    # -1 entries past each length, and a row with lengths == 0 (the
+    # oracle's uniform mean of V, -1 read as block 0)
+    cases.append(ref.paged_attention_inputs(3, 2, 2, 64, 40, 8, 6, dtype,
+                                            [9, 48, 20], 100))
+    cases.append(ref.paged_attention_inputs(3, 2, 2, 64, 12, 8, 4, dtype,
+                                            [9, 32, 0], 101))
+    ops.reset_launches()
+    for args in cases:
+        want = ref.paged_attention_public(*args)
+        got = ops.paged_attention(*[a.to(cuda_device) for a in args])
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == want.shape
+        torch.testing.assert_close(got.cpu().float(), want.float(),
+                                   atol=tol, rtol=tol)
+    assert ops.launch_counts()["paged_attention"] == len(cases)

@@ -11,8 +11,10 @@ import torch
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
 MODULES = ["repro_torch", "repro_torch.kernels.ops", "repro_torch.kernels.build",
+           "repro_torch.kernels.paged_attention",
            "repro_torch.memsys.tiered_kv", "repro_torch.serving.engine",
-           "repro_torch.serving.serve_tiered", "repro_torch.configs"]
+           "repro_torch.serving.serve_tiered", "repro_torch.configs",
+           "repro_torch.configs.qwen2_5_14b"]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                        re.MULTILINE)
 

@@ -107,6 +107,33 @@ def test_pt_walk_strided_entries_match_jax():
     np.testing.assert_array_equal(s.numpy(), ws)
 
 
+# queries past the upper row and below zero, a leaf id past the table:
+# JAX wraps a negative index once, then clamps every gather into range
+OUT_OF_RANGE = dict(upper=[2, -1, 0, 1], leaf_tier=[0, 1, 1],
+                    leaf_entries=np.arange(12).reshape(3, 4),
+                    vb=[0, 5, 17, 40, -1, -100, -17, 3])
+OUT_OF_RANGE_WANT = ([1, -1, 1, 1, 1, 1, 1, 1], [8, -1, 5, 4, 7, 8, 11, 11])
+
+
+@pytest.mark.parametrize("batched", [False, True])
+@pytest.mark.parametrize("first_leaf", [2, 5])    # 5: past the 3 leaf pages
+def test_pt_walk_out_of_range_queries_match_jax(first_leaf, batched):
+    case = {k: np.asarray(v, np.int32) for k, v in OUT_OF_RANGE.items()}
+    case["upper"][0] = first_leaf
+    wt, ws = jax_walk(*case.values())
+    np.testing.assert_array_equal(wt, OUT_OF_RANGE_WANT[0])
+    np.testing.assert_array_equal(ws, OUT_OF_RANGE_WANT[1])
+    upper = to_torch(case["upper"])
+    if batched:
+        upper = torch.stack([upper, torch.full_like(upper, -1)])
+    t, s = ops.pt_walk(upper, *map(to_torch, list(case.values())[1:]))
+    if batched:
+        assert (t[1] == -1).all() and (s[1] == -1).all()
+        t, s = t[0], s[0]
+    np.testing.assert_array_equal(t.numpy(), wt)
+    np.testing.assert_array_equal(s.numpy(), ws)
+
+
 def copy_inputs(rng, p_src, p_dst, tail, m, dtype, groups=None):
     lead = () if groups is None else (groups,)
     src = jnp.asarray(rng.normal(size=lead + (p_src,) + tail), dtype)
@@ -153,6 +180,8 @@ def test_wrappers_reject_bad_arguments():
     with pytest.raises(ValueError, match="contiguous"):
         ops.pt_walk(walk[0], walk[1], walk[2],
                     torch.zeros(16, dtype=torch.int32)[::2])
+    with pytest.raises(ValueError, match="empty"):
+        ops.pt_walk(walk[0][:0], *walk[1:])
     pool = torch.zeros(2, 4, 4, 2, 8)
     ids = torch.zeros(1, 2, dtype=torch.int32)
     with pytest.raises(ValueError, match="multiple of 16"):
@@ -176,5 +205,6 @@ def test_plain_versions_count_no_launches():
     ops.pt_walk(*map(to_torch, walk_inputs(rng, 4, 64, 16)))
     pool = torch.zeros(2, 4, 4, 2, 8)
     ops.block_copy(pool, pool.clone(), torch.tensor([[0, 1]], dtype=torch.int32))
-    assert ops.launch_counts() == {"pt_walk": 0, "block_copy": 0}
+    assert ops.launch_counts() == {"pt_walk": 0, "block_copy": 0,
+                                   "paged_attention": 0}
 
