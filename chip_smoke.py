@@ -11,15 +11,28 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
 1. torch / CUDA versions and the card's name and power limit;
 2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed);
 3. hold each kernel against its plain PyTorch version on the card, exactly,
-   at the serving path's shapes and at the shapes of tests/test_kernels.py;
+   at the serving path's shapes and at the shapes of tests/test_kernels.py:
+   the walk (``pt_walk``, and ``pt_walk_rows_any``, the tick's gathered
+   rows walked and reduced to a flag each, out-of-range queries and row
+   ids included) and the copy (``block_copy``, and ``block_copy_pools``
+   over 1 and 2 pool pairs at M = 1, 6, 128, blocks that are not a whole
+   number of chunks, id pairs outside the pools skipped);
 4. serve at Qwen1.5-0.5B's full KV width (24 groups, 16 KV heads, d_head
    64, bf16): the ``serve_tiered`` burst, then the ``kv_tiering`` pressure
    burst with Radiant and with immobile tables, each with the launch
-   counts set to 0 just before it and read just after;
+   counts set to 0 just before it and read just after: ``pt_walk``
+   launches == decode ticks, ``block_copy`` launches == migrations that
+   moved blocks (one launch for a migration's K and V pools);
 5. re-run both pressure bursts on the CPU through the plain versions and
    require the card's final state to equal the CPU's, field for field;
 6. time each kernel, its plain version and a one-call PyTorch yardstick
-   with CUDA events, beside the least time the card could take;
+   with CUDA events in a CUDA graph, beside the least time the card could
+   take: ``pt_walk`` at the tick's shape; the tick's whole walk as one
+   launch against the same work as four separate ops (gather, walk,
+   compare, reduce), with the eager host time of each and an empty kernel as the
+   floor of one launch; the copy of K and V at the burst's mean blocks per
+   migration in one launch (its eager host time also against one
+   ``block_copy`` call per pool), and one pool at that M and at M = 128;
 7. decode attention through ``ops.paged_attention``: (a) the kernel
    against its plain version at the shapes of tests/test_kernels.py, with
    -1 table entries past each length and a row of length 0 (f32 and
@@ -75,6 +88,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import pt_walk as pt_walk_mod
     from repro_torch.memsys import tiered_kv as tkv
     from repro_torch.serving import serve_tiered as st
 
@@ -171,6 +185,72 @@ def main() -> int:
         for P, bs, KH, Dh, M in [(8, 8, 1, 128, 1), (16, 16, 2, 128, 5),
                                  (32, 8, 4, 256, 12)]:
             copy_case(1, P, P, (bs, KH, Dh), M, dtype)
+    # block_copy_pools: 1 and 2 pool pairs in one launch, at the serving
+    # width at M = 1, 6, 128, and blocks of 2.5 and 1.25 chunks (40 KiB
+    # bf16, 20 KiB f32) with id pairs outside the pools, which are skipped
+    def pools_case(n_pairs, G, p_src, p_dst, tail, m, dtype, bad=()):
+        srcs = [torch.randn((G, p_src) + tail, generator=gen).to(dtype).to(dev)
+                for _ in range(n_pairs)]
+        dsts = [torch.randn((G, p_dst) + tail, generator=gen).to(dtype).to(dev)
+                for _ in range(n_pairs)]
+        ids = torch.stack([torch.randperm(p_src, generator=gen)[:m],
+                           torch.randperm(p_dst, generator=gen)[:m]],
+                          1).to(torch.int32).to(dev)
+        want = [ref.block_copy_ref(s, d.clone(), ids) for s, d in zip(srcs, dsts)]
+        if bad:
+            ids = torch.cat([ids, torch.tensor(bad, dtype=torch.int32,
+                                               device=dev)])
+        got = ops.block_copy_pools(list(zip(srcs, dsts)), ids)
+        torch.cuda.synchronize()
+        what = f"block_copy_pools {n_pairs} pairs {G}x{p_src}->{p_dst} {tail} m={m}"
+        for g, w in zip(got, want):
+            check(torch.equal(g, w), what)
+            err["block_copy"] = max(err["block_copy"],
+                                    float((g.float() - w.float()).abs().max()))
+
+    for n_pairs in (1, 2):
+        for m in (1, 6, 128):
+            pools_case(n_pairs, geo.n_groups, 256, 160, tail, m, geo.dtype)
+        pools_case(n_pairs, 3, 40, 24, (20, 16, 64), 6, torch.bfloat16,
+                   bad=[[40, 0], [-1, 1], [0, 24], [3, -2]])
+        pools_case(n_pairs, 1, 12, 9, (5, 16, 64), 4, torch.float32)
+    torch.cuda.empty_cache()
+
+    # the tick's walk: row ids gathered, walked and reduced to a flag per
+    # row in one launch, at both bursts' tick shapes, for each tier value
+    def walk_any_case(r, n_seqs, n_leaf, max_leaf, fanout, n, tier):
+        upper = randint(-1, n_leaf, (n_seqs, max_leaf))
+        ltier = randint(-1, 2, (n_leaf,))
+        lent = randint(-1, 4096, (n_leaf, fanout, 2))[:, :, 1]
+        vb = randint(0, max_leaf * fanout, (n,))
+        rows = randint(0, n_seqs, (r,))
+        got = ops.pt_walk_rows_any(upper, rows, ltier, lent, vb, tier)
+        want = ref.pt_walk_rows_any_ref(upper, rows, ltier, lent, vb, tier)
+        check(torch.equal(got, want), f"pt_walk_rows_any {r} of {n_seqs} "
+                                      f"rows n={n} tier={tier}")
+        err["pt_walk"] = max(err["pt_walk"], float((got - want).abs().max()))
+
+    for burst in (st.SERVE_TIERED, st.PRESSURE):
+        max_blocks = -(-burst.max_seq // geo.block_size)
+        max_leaf = -(-max_blocks // tkv.FANOUT)
+        for tier in (tkv.HOT, tkv.COLD, -1):
+            walk_any_case(burst.active_slots, burst.n_seqs,
+                          burst.n_seqs * max_leaf, max_leaf, tkv.FANOUT,
+                          max_blocks, tier)
+    for r, n_seqs, n_leaf, max_leaf, n in [(1, 3, 8, 8, 512), (33, 40, 12, 40, 200),
+                                           (4, 16, 16, 1, 1000)]:
+        walk_any_case(r, n_seqs, n_leaf, max_leaf, 64, n, tkv.COLD)
+    # out-of-range queries and row ids (negative: counted from the end)
+    # through the flags: row 0 reads tier 1 at every valid query
+    oor_upper = torch.stack([oor[0], torch.full_like(oor[0], -1)])
+    for rows, t, want in (([0, 1, 0], 1, [1, 0, 1]), ([1, -2, 5], -1, [1, 1, 1]),
+                          ([0, -1], 0, [0, 0])):
+        rows = torch.tensor(rows, dtype=torch.int32, device=dev)
+        got = ops.pt_walk_rows_any(oor_upper, rows, *oor[1:], t)
+        plain = ref.pt_walk_rows_any_ref(oor_upper, rows, *oor[1:], t)
+        check(got.tolist() == plain.tolist() == want,
+              f"pt_walk_rows_any out of range: {got.tolist()} "
+              f"{plain.tolist()} want {want}")
     log(f"[3] kernels equal their plain versions on the card "
         f"(max abs err {err})")
     torch.cuda.empty_cache()
@@ -183,10 +263,25 @@ def main() -> int:
     # warm-up at reduced width: PyTorch loads its CUDA kernels lazily, and
     # the first burst's clock should not carry that one-time cost
     st.serve(st.PRESSURE, geometry=configs.REDUCED)
+    # blocks moved by each migration, kept on the card (no sync) and read
+    # after the burst: the count that block_copy's launches must equal
+    migrate = tkv.migrate_sequence
+    moved_by = []
+
+    def counted_migrate(kv, *args, **kwargs):
+        before = kv.stats[tkv.STAT_BLK_PROMOTE] + kv.stats[tkv.STAT_BLK_DEMOTE]
+        migrate(kv, *args, **kwargs)
+        moved_by.append(kv.stats[tkv.STAT_BLK_PROMOTE]
+                        + kv.stats[tkv.STAT_BLK_DEMOTE] - before)
+        return kv
+
+    tkv.migrate_sequence = counted_migrate
     for name, burst, radiant in runs:
+        moved_by.clear()
         ops.reset_launches()
         res = st.serve(burst, radiant=radiant)
         counts = ops.launch_counts()
+        migrations = int((torch.stack(moved_by) > 0).sum())
         s = res.stats
         kvs = [int(x) for x in res.engine.kv.stats]
         n_req = len(burst.prompts)
@@ -207,13 +302,15 @@ def main() -> int:
         check(counts["pt_walk"] == s.steps,
               f"{name}: pt_walk launches {counts['pt_walk']} != ticks {s.steps}")
         moved = kvs[tkv.STAT_BLK_PROMOTE] + kvs[tkv.STAT_BLK_DEMOTE]
-        check(counts["block_copy"] > 0 and counts["block_copy"] % 2 == 0
-              and counts["block_copy"] <= 2 * moved,
-              f"{name}: block_copy launches {counts['block_copy']} for "
-              f"{moved} moved blocks")
+        log(f"[4] {name}: {len(moved_by)} migrations, {migrations} moved "
+            f"blocks ({moved} blocks in all)")
+        check(migrations > 0 and counts["block_copy"] == migrations,
+              f"{name}: block_copy launches {counts['block_copy']} != "
+              f"{migrations} migrations that moved blocks")
         for k in launches:
             launches[k] += counts[k]
         served[name] = (res, counts, moved)
+    tkv.migrate_sequence = migrate
     torch.cuda.empty_cache()
 
     # -- 5. the pressure bursts again on the CPU, through the plain versions --
@@ -301,53 +398,127 @@ def main() -> int:
         shape=f"R={upper.shape[0]} max_leaf={max_leaf} "
               f"n_leaf={ltier.numel()} F={tkv.FANOUT} N={vb.numel()}")
 
-    # block_copy at the serve_tiered burst's mean pairs per launch, cold ->
-    # hot at full width; id sets rotate so the 50 MB L2 does not serve reuse
+    # the decode tick's whole walk over the engine's table (n_seqs rows, R
+    # of them active): four separate ops (gather the rows, walk, compare,
+    # reduce) against one launch of pt_walk_rows_any; the eager
+    # host time of each is the engine's call, row-id copy and flag read
+    # included
+    table = randint(-1, b.n_seqs * max_leaf, (b.n_seqs, max_leaf))
+    rids = list(range(0, b.n_seqs, b.n_seqs // b.active_slots))
+    idx = torch.tensor(rids, dtype=torch.int32, device=dev)
+    idx64 = idx.long()
+
+    def tick_old(rows=idx64):
+        tier, _ = ops.pt_walk(table[rows], ltier, lent, vb)
+        return (tier == tkv.COLD).any(dim=1)
+
+    def tick_new(rows=idx):
+        return ops.pt_walk_rows_any(table, rows, ltier, lent, vb, tkv.COLD)
+
+    check(tick_old().tolist() == [bool(f) for f in tick_new().tolist()],
+          "the tick's walk: four ops and one launch disagree")
+
+    def walk_any_bytes(table, rows, vb):
+        """Bytes the tick's walk must move: the row ids, the upper rows they
+        name, the queries, the tier of each leaf page reached, the flags."""
+        li = (vb.long() // lent.shape[1]).clamp(max=table.shape[1] - 1)
+        leaf = table.long()[rows.long()][:, li]
+        reached = leaf[leaf >= 0].clamp(max=ltier.numel() - 1).unique()
+        return 4 * (2 * rows.numel() + rows.numel() * table.shape[1]
+                    + vb.numel() + reached.numel())
+
+    tick = dict(
+        ms=device_ms(tick_new), old_ms=device_ms(tick_old),
+        floor_ms=device_ms(lambda: pt_walk_mod.empty_cuda(dev)),
+        plain_ms=device_ms(lambda: ref.pt_walk_rows_any_ref(
+            table, idx, ltier, lent, vb, tkv.COLD)),
+        call_ms=host_ms(lambda: [bool(f) for f in tick_new(
+            torch.tensor(rids, dtype=torch.int32, device=dev)).tolist()]),
+        old_call_ms=host_ms(lambda: tick_old(
+            torch.tensor(rids, device=dev)).tolist()),
+        bound_ms=walk_any_bytes(table, idx, vb) / HBM_BYTES_PER_S * 1e3,
+        library_ms=None,
+        shape=f"R={len(rids)} of {b.n_seqs} rows, max_leaf={max_leaf} "
+              f"n_leaf={ltier.numel()} F={tkv.FANOUT} N={vb.numel()}")
+
+    # block_copy at the serve_tiered burst's mean blocks per migration, cold
+    # -> hot at full width, K and V pools in one launch, and one pool at
+    # that M and at M = 128; id sets rotate so the 50 MB L2 does not serve
+    # reuse
     res, counts, moved = served["serve_tiered"]
-    m = max(1, round(moved / (counts["block_copy"] / 2)))
+    m = max(1, round(moved / counts["block_copy"]))
     del served, res
     torch.cuda.empty_cache()
-    src = torch.randn((geo.n_groups, b.n_cold) + tail, dtype=geo.dtype,
-                      device=dev,
-                      generator=torch.Generator(device=dev).manual_seed(1))
-    dst = torch.zeros((geo.n_groups, b.n_hot) + tail, dtype=geo.dtype,
-                      device=dev)
+    cold = [torch.randn((geo.n_groups, b.n_cold) + tail, dtype=geo.dtype,
+                        device=dev, generator=torch.Generator(
+                            device=dev).manual_seed(seed)) for seed in (1, 2)]
+    hot = [torch.zeros((geo.n_groups, b.n_hot) + tail, dtype=geo.dtype,
+                       device=dev) for _ in range(2)]
+    block_bytes = cold[0][:, 0].numel() * cold[0].element_size()
 
     def id_sets(m, k=32):
         return [torch.stack([torch.randperm(b.n_cold, generator=gen)[:m],
                              torch.randperm(b.n_hot, generator=gen)[:m]],
                             1).to(torch.int32).to(dev) for _ in range(k)]
 
-    def copy_times(m):
-        sets = id_sets(m)
-        cyc = itertools.cycle(sets)
-        copy_bytes = 2 * m * src[:, 0].numel() * src.element_size()
+    def copy_times(m, n_pairs):
+        pairs = list(zip(cold, hot))[:n_pairs]
+        cyc = itertools.cycle(id_sets(m))
 
-        def library():
+        def plain():
             ids = next(cyc)
-            dst[:, ids[:, 1]] = src[:, ids[:, 0]]
+            for src, dst in pairs:
+                ref.block_copy_ref(src, dst, ids)
 
-        return dict(
-            ms=device_ms(lambda: ops.block_copy(src, dst, next(cyc))),
-            plain_ms=device_ms(lambda: ref.block_copy_ref(src, dst, next(cyc))),
-            library_ms=device_ms(library),
-            call_ms=host_ms(lambda: ops.block_copy(src, dst, next(cyc))),
-            bound_ms=copy_bytes / HBM_BYTES_PER_S * 1e3,
-            shape=f"G={geo.n_groups} P={b.n_cold}->{b.n_hot} "
-                  f"block={tail} {geo.dtype} M={m}")
+        def library():                   # one indexed assignment, one pool
+            ids = next(cyc)
+            pairs[0][1][:, ids[:, 1]] = pairs[0][0][:, ids[:, 0]]
 
-    copy = copy_times(m)
-    big = copy_times(128)
-    for name, t in (("pt_walk", walk), ("block_copy", copy),
-                    ("block_copy (M=128)", big)):
-        log(f"[6] {name} [{t['shape']}]: kernel {t['ms']:.5f} ms "
+        def kernel():                    # ops.block_copy for one pair
+            ids = next(cyc)
+            if n_pairs == 1:
+                ops.block_copy(*pairs[0], ids)
+            else:
+                ops.block_copy_pools(pairs, ids)
+
+        def per_pool():                  # one ops.block_copy call per pool
+            ids = next(cyc)
+            for src, dst in pairs:
+                ops.block_copy(src, dst, ids)
+
+        return dict(ms=device_ms(kernel), plain_ms=device_ms(plain),
+                    library_ms=device_ms(library) if n_pairs == 1 else None,
+                    call_ms=host_ms(kernel), per_pool_call_ms=host_ms(per_pool),
+                    bound_ms=(2 * n_pairs * m * block_bytes + 8 * m)
+                    / HBM_BYTES_PER_S * 1e3,
+                    shape=f"{n_pairs} pool pair(s), G={geo.n_groups} "
+                          f"P={b.n_cold}->{b.n_hot} block={tail} {geo.dtype} "
+                          f"M={m}")
+
+    copy = copy_times(m, 2)
+    one = copy_times(m, 1)
+    big = copy_times(128, 1)
+    for name, t in (("pt_walk", walk), ("the tick's walk (pt_walk_rows_any)", tick),
+                    ("block_copy_pools (K and V)", copy),
+                    ("block_copy (one pool)", one),
+                    ("block_copy (one pool, M=128)", big)):
+        log(f"[6] {name} [{t['shape']}]: kernel {t['ms']:.7f} ms "
             f"(eager call {t['call_ms']:.5f} ms) plain {t['plain_ms']:.5f} ms "
-            f"library {t['library_ms']} bound {t['bound_ms']:.6f} ms")
-    gbps = 2 * 128 * src[:, 0].numel() * src.element_size() / big["ms"] / 1e6
+            f"library {t['library_ms']} bound {t['bound_ms']:.7f} ms "
+            f"({t['bound_ms'] / t['ms']:.3f} of the bound)")
+    log(f"[6] the tick's walk: one launch {tick['ms']:.7f} ms against the "
+        f"four separate ops {tick['old_ms']:.7f} ms (device, in a graph); "
+        f"eager engine call {tick['call_ms']:.5f} ms against "
+        f"{tick['old_call_ms']:.5f} ms; an empty kernel {tick['floor_ms']:.7f}"
+        f" ms (the floor of one launch)")
+    log(f"[6] block_copy eager host time, K and V at M={m}: one "
+        f"block_copy_pools call {copy['call_ms']:.5f} ms against one "
+        f"block_copy call per pool {copy['per_pool_call_ms']:.5f} ms")
+    gbps = 2 * 128 * block_bytes / big["ms"] / 1e6
     log(f"[6] block_copy M=128 moves {gbps:.0f} GB/s "
-        f"({gbps / (HBM_BYTES_PER_S / 1e9):.2f} of 3.35 TB/s)")
+        f"({gbps / (HBM_BYTES_PER_S / 1e9):.3f} of 3.35 TB/s)")
+    del cold, hot
     log(f"[6] total wall {time.perf_counter() - t_start:.1f} s")
-    del src, dst
     torch.cuda.empty_cache()
 
     # -- 7. paged attention through ops.paged_attention -----------------------
@@ -486,7 +657,7 @@ def main() -> int:
     main = attn["Qwen1.5-0.5B"]
     launches["paged_attention"] = attn_launches
     for name, t, replaces in (
-            ("pt_walk", walk, "src/repro/kernels/pt_walk.py:44"),
+            ("pt_walk", tick, "src/repro/kernels/pt_walk.py:44"),
             ("block_copy", copy, "src/repro/kernels/block_copy.py:25"),
             ("paged_attention", main,
              "src/repro/kernels/paged_attention.py:81")):

@@ -2,8 +2,9 @@
 
 Replaces the JAX package's Pallas kernel ``kernels/block_copy.py::
 block_copy_kernel``.  Callers go through :func:`repro_torch.kernels.ops.
-block_copy`, which checks the arguments and takes the plain version
-(``ref.block_copy_ref``) for CPU tensors.
+block_copy_pools` (or ``ops.block_copy`` for one pair), which checks the
+arguments and takes the plain version (``ref.block_copy_ref``) for CPU
+tensors.
 """
 from __future__ import annotations
 
@@ -12,23 +13,29 @@ import torch
 from . import build
 
 launches = 0    # kernel launches since the last reset (ops.reset_launches)
+MAX_PAIRS = 2   # pool pairs per launch: a migration's K and V pools
 
 
-def block_copy_cuda(src_pool, dst_pool, ids):
-    """Copy in place on the tensors' CUDA device (arguments checked by
-    ``ops.block_copy``); pools are ``[G, P, bs, KH, Dh]``."""
+def block_copy_cuda(pairs, ids):
+    """Copy in place on the tensors' CUDA device, every pair (at most
+    ``MAX_PAIRS``) in one launch (arguments checked by
+    ``ops.block_copy_pools``); pools are ``[G, P, bs, KH, Dh]``, every
+    source of one shape, every destination of one."""
     global launches
-    if ids.shape[0] == 0 or src_pool.shape[0] == 0:
-        return dst_pool                    # nothing to copy, no launch
+    (src0, dst0), *rest = pairs
+    src1, dst1 = rest[0] if rest else (None, None)
+    groups, p_src = src0.shape[:2]
+    p_dst = dst0.shape[1]
+    m = ids.shape[0]
+    if m == 0 or groups == 0:
+        return                             # nothing to copy, no launch
+    block_bytes = src0[0, 0].numel() * src0.element_size()
     lib = build.build().lib
-    groups, p_src = src_pool.shape[:2]
-    p_dst = dst_pool.shape[1]
-    block_bytes = src_pool[0, 0].numel() * src_pool.element_size()
-    with torch.cuda.device(dst_pool.device):
+    ptr = lambda t: None if t is None else t.data_ptr()    # noqa: E731
+    with torch.cuda.device(dst0.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.block_copy_launch(
-            src_pool.data_ptr(), dst_pool.data_ptr(), ids.data_ptr(),
-            ids.shape[0], groups, p_src, p_dst, block_bytes, stream)
+        err = lib.block_copy_launch(src0.data_ptr(), dst0.data_ptr(),
+                                    ptr(src1), ptr(dst1), ids.data_ptr(), m,
+                                    groups, p_src, p_dst, block_bytes, stream)
     build.check_launch("block_copy", err)
     launches += 1
-    return dst_pool

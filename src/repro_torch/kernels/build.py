@@ -29,12 +29,13 @@ _c = ctypes
 # name -> (argtypes) of each C entry point; every one returns a cudaError_t
 SIGNATURES = {
     "pt_walk_launch": [_c.c_void_p, _c.c_int, _c.c_int, _c.c_void_p,
-                       _c.c_void_p, _c.c_int, _c.c_int, _c.c_longlong,
-                       _c.c_longlong, _c.c_void_p, _c.c_int, _c.c_void_p,
-                       _c.c_void_p, _c.c_void_p],
-    "block_copy_launch": [_c.c_void_p, _c.c_void_p, _c.c_void_p, _c.c_int,
-                          _c.c_int, _c.c_int, _c.c_int, _c.c_longlong,
-                          _c.c_void_p],
+                       _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_int,
+                       _c.c_int, _c.c_longlong, _c.c_longlong, _c.c_void_p,
+                       _c.c_int, _c.c_void_p, _c.c_void_p, _c.c_void_p,
+                       _c.c_int, _c.c_void_p],
+    "empty_launch": [_c.c_void_p],
+    "block_copy_launch": [_c.c_void_p] * 5 + [_c.c_int] * 4
+                         + [_c.c_longlong, _c.c_void_p],
     "paged_attention_launch": [_c.c_void_p] * 7 + [_c.c_int] * 9
                               + [_c.c_void_p],
 }

@@ -31,6 +31,22 @@ def _same_device(name: str, *tensors) -> torch.device:
     return dev
 
 
+def _check_walk(name, upper, leaf_tier, leaf_entries, vb, *more):
+    """The rules both walks share; returns the tensors' device."""
+    dev = _same_device(name, upper, leaf_tier, leaf_entries, vb, *more)
+    for t in (upper, leaf_tier, leaf_entries, vb, *more):
+        _check(t.dtype == torch.int32, name, f"needs int32, got {t.dtype}")
+    for t in (upper, leaf_tier, vb, *more):
+        _check(t.is_contiguous(), name, "needs contiguous tensors")
+    _check(leaf_entries.dim() == 2, name, "leaf_entries must be [n_leaf, F]")
+    _check(leaf_tier.shape == leaf_entries.shape[:1], name,
+           "leaf_tier must be [n_leaf] like leaf_entries")
+    _check(vb.dim() == 1, name, "vb must be [N]")
+    _check(upper.shape[-1] > 0 and leaf_entries.shape[0] > 0, name,
+           "the upper row and the leaf table must not be empty")
+    return dev
+
+
 def pt_walk(upper, leaf_tier, leaf_entries, vb):
     """Walk the two-level table (see ``ref.pt_walk_ref``).
 
@@ -40,18 +56,8 @@ def pt_walk(upper, leaf_tier, leaf_entries, vb):
     ``[n_leaf, F, 2]`` table); the other tensors must be contiguous.
     """
     name = "pt_walk"
-    dev = _same_device(name, upper, leaf_tier, leaf_entries, vb)
-    for t in (upper, leaf_tier, leaf_entries, vb):
-        _check(t.dtype == torch.int32, name, f"needs int32, got {t.dtype}")
-    for t in (upper, leaf_tier, vb):
-        _check(t.is_contiguous(), name, "needs contiguous tensors")
+    dev = _check_walk(name, upper, leaf_tier, leaf_entries, vb)
     _check(upper.dim() in (1, 2), name, f"upper must be 1-D or 2-D, got {tuple(upper.shape)}")
-    _check(leaf_entries.dim() == 2, name, "leaf_entries must be [n_leaf, F]")
-    _check(leaf_tier.shape == leaf_entries.shape[:1], name,
-           "leaf_tier must be [n_leaf] like leaf_entries")
-    _check(vb.dim() == 1, name, "vb must be [N]")
-    _check(upper.shape[-1] > 0 and leaf_entries.shape[0] > 0, name,
-           "the upper row and the leaf table must not be empty")
     if dev.type == "cpu":
         return ref.pt_walk_ref(upper, leaf_tier, leaf_entries, vb)
     tier, slot = _pt_walk.pt_walk_cuda(upper.reshape(-1, upper.shape[-1]),
@@ -61,44 +67,90 @@ def pt_walk(upper, leaf_tier, leaf_entries, vb):
     return tier, slot
 
 
-def block_copy(src_pool, dst_pool, ids):
-    """``dst_pool[..., ids[m,1]] = src_pool[..., ids[m,0]]`` in place;
-    returns ``dst_pool``.
+def pt_walk_rows_any(upper, rows, leaf_tier, leaf_entries, vb, tier: int):
+    """``flags i32[R]``: ``flags[r] == 1`` where a walk of row ``rows[r]``
+    of ``upper`` (``i32[n_rows, max_leaf]``) for the queries ``vb`` reads
+    a leaf page of tier ``tier``, else 0 (see
+    ``ref.pt_walk_rows_any_ref``).  The gather of the rows, the walk and
+    the reduction are one launch, which writes no ``(tier, slot)``."""
+    name = "pt_walk_rows_any"
+    dev = _check_walk(name, upper, leaf_tier, leaf_entries, vb, rows)
+    _check(upper.dim() == 2, name, f"upper must be [n_rows, max_leaf], got "
+           f"{tuple(upper.shape)}")
+    _check(rows.dim() == 1, name, f"rows must be [R], got {tuple(rows.shape)}")
+    _check(upper.shape[0] > 0, name, "the upper table must not be empty")
+    if dev.type == "cpu":
+        return ref.pt_walk_rows_any_ref(upper, rows, leaf_tier, leaf_entries,
+                                        vb, tier)
+    return _pt_walk.pt_walk_cuda(upper, leaf_tier, leaf_entries, vb,
+                                 rows=rows, flag_tier=int(tier))
 
-    Pools are ``[P, bs, KH, Dh]`` or ``[G, P, bs, KH, Dh]`` (one launch for
-    all groups); the two may differ in ``P`` only, and must be different
-    tensors.  A block's size in bytes and both pools' base addresses must
-    be multiples of 16 (the kernel moves 16-byte vectors).  ``ids`` is
-    ``i32[M, 2]`` (src, dst), in range, destinations distinct.
+
+MAX_POOL_PAIRS = _block_copy.MAX_PAIRS
+
+
+def block_copy_pools(pairs, ids, *, name: str = "block_copy_pools"):
+    """For every ``(src_pool, dst_pool)`` of ``pairs``: ``dst_pool[...,
+    ids[m,1]] = src_pool[..., ids[m,0]]`` in place, all pairs in one
+    launch; returns the destination pools.
+
+    Pools are ``[P, bs, KH, Dh]`` or ``[G, P, bs, KH, Dh]`` (one launch
+    for all groups); a pair's two pools may differ in ``P`` only, and
+    every pair has the shapes and dtype of the first.  No source may be a
+    destination, and no destination repeats.  A block's size in bytes and
+    every pool's base address must be multiples of 16.  ``ids`` is
+    ``i32[M, 2]`` (src, dst), shared by the pairs, in range, destinations
+    distinct.  At most ``MAX_POOL_PAIRS`` pairs (2: a migration's K and V
+    pools).
     """
-    name = "block_copy"
-    dev = _same_device(name, src_pool, dst_pool, ids)
-    _check(src_pool.dtype == dst_pool.dtype, name,
-           f"pool dtypes differ: {src_pool.dtype} vs {dst_pool.dtype}")
-    _check(src_pool.dim() == dst_pool.dim() and src_pool.dim() in (4, 5), name,
-           "pools must both be [P, bs, KH, Dh] or both [G, P, bs, KH, Dh]")
-    lead = src_pool.dim() - 4
-    _check(src_pool.shape[:lead] == dst_pool.shape[:lead]
-           and src_pool.shape[lead + 1:] == dst_pool.shape[lead + 1:], name,
-           f"pools differ beyond P: {tuple(src_pool.shape)} vs {tuple(dst_pool.shape)}")
-    _check(src_pool.is_contiguous() and dst_pool.is_contiguous()
-           and ids.is_contiguous(), name, "needs contiguous tensors")
+    pairs = tuple(pairs)
+    _check(1 <= len(pairs) <= MAX_POOL_PAIRS, name,
+           f"takes 1 to {MAX_POOL_PAIRS} pool pairs, got {len(pairs)}")
+    src0, dst0 = pairs[0]
+    dev = _same_device(name, ids, *(t for pair in pairs for t in pair))
     _check(ids.dtype == torch.int32 and ids.dim() == 2 and ids.shape[1] == 2,
            name, f"ids must be int32 [M, 2], got {ids.dtype} {tuple(ids.shape)}")
-    _check(src_pool.data_ptr() != dst_pool.data_ptr(), name,
+    _check(ids.is_contiguous(), name, "needs contiguous tensors")
+    for src_pool, dst_pool in pairs:
+        _check(src_pool.dtype == dst_pool.dtype, name,
+               f"pool dtypes differ: {src_pool.dtype} vs {dst_pool.dtype}")
+        _check(src_pool.dim() == dst_pool.dim() and src_pool.dim() in (4, 5),
+               name, "pools must both be [P, bs, KH, Dh] or both [G, P, bs, KH, Dh]")
+        lead = src_pool.dim() - 4
+        _check(src_pool.shape[:lead] == dst_pool.shape[:lead]
+               and src_pool.shape[lead + 1:] == dst_pool.shape[lead + 1:], name,
+               f"pools differ beyond P: {tuple(src_pool.shape)} vs "
+               f"{tuple(dst_pool.shape)}")
+        _check(src_pool.shape == src0.shape and dst_pool.shape == dst0.shape
+               and src_pool.dtype == src0.dtype, name,
+               "every pair must have the shapes and dtype of the first")
+        _check(src_pool.is_contiguous() and dst_pool.is_contiguous(), name,
+               "needs contiguous tensors")
+        block_bytes = (math.prod(src_pool.shape[lead + 1:])
+                       * src_pool.element_size())
+        _check(block_bytes % 16 == 0, name,
+               f"a block of {block_bytes} B is not a multiple of 16 B")
+        _check(src_pool.data_ptr() % 16 == 0 and dst_pool.data_ptr() % 16 == 0,
+               name, "pools must start on a 16-byte boundary")
+    srcs = {s.data_ptr() for s, _ in pairs}
+    dsts = [d.data_ptr() for _, d in pairs]
+    _check(srcs.isdisjoint(dsts), name,
            "source and destination must be different pools")
-    block_bytes = math.prod(src_pool.shape[lead + 1:]) * src_pool.element_size()
-    _check(block_bytes % 16 == 0, name,
-           f"a block of {block_bytes} B is not a multiple of 16 B")
-    _check(src_pool.data_ptr() % 16 == 0 and dst_pool.data_ptr() % 16 == 0,
-           name, "pools must start on a 16-byte boundary")
+    _check(len(set(dsts)) == len(dsts), name, "a destination pool repeats")
     if dev.type == "cpu":
-        return ref.block_copy_ref(src_pool, dst_pool, ids)
-    if lead == 0:
-        _block_copy.block_copy_cuda(src_pool[None], dst_pool[None], ids)
+        return tuple(ref.block_copy_ref(s, d, ids) for s, d in pairs)
+    if src0.dim() == 4:
+        _block_copy.block_copy_cuda([(s[None], d[None]) for s, d in pairs], ids)
     else:
-        _block_copy.block_copy_cuda(src_pool, dst_pool, ids)
-    return dst_pool
+        _block_copy.block_copy_cuda(pairs, ids)
+    return tuple(d for _, d in pairs)
+
+
+def block_copy(src_pool, dst_pool, ids):
+    """``dst_pool[..., ids[m,1]] = src_pool[..., ids[m,0]]`` in place;
+    returns ``dst_pool``.  The one-pair case of :func:`block_copy_pools`
+    (same rules, same kernel)."""
+    return block_copy_pools(((src_pool, dst_pool),), ids, name="block_copy")[0]
 
 
 def paged_attention(q, k_pool, v_pool, tables, lengths):
@@ -128,7 +180,9 @@ def paged_attention(q, k_pool, v_pool, tables, lengths):
 def launch_counts() -> dict:
     """Calls that launched each kernel since the last
     :func:`reset_launches` (one ``paged_attention`` call launches its
-    partial and its combine kernel)."""
+    partial and its combine kernel; ``pt_walk_rows_any`` counts as a
+    ``pt_walk`` launch, ``block_copy_pools`` as one ``block_copy`` launch
+    whatever its number of pairs)."""
     return {"pt_walk": _pt_walk.launches, "block_copy": _block_copy.launches,
             "paged_attention": _paged_attention.launches}
 

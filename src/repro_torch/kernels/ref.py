@@ -103,6 +103,19 @@ def pt_walk_ref(upper, leaf_tier, leaf_entries, vb):
     return tier, slot
 
 
+def pt_walk_rows_any_ref(upper, rows, leaf_tier, leaf_entries, vb, tier):
+    """``flags i32[R]``: 1 where the walk (:func:`pt_walk_ref`) of row
+    ``rows[r]`` of ``upper i32[n_rows, max_leaf]`` reads a leaf page of
+    tier ``tier`` for some query of ``vb``, else 0.  A row id follows
+    JAX's gathers as the walk's indices do: counted from the end once
+    when negative, then clamped into the table."""
+    n_rows = upper.shape[0]
+    r = rows.long()
+    r = torch.where(r < 0, r + n_rows, r).clamp(0, n_rows - 1)
+    walked, _ = pt_walk_ref(upper[r], leaf_tier, leaf_entries, vb)
+    return (walked == tier).any(dim=1).to(torch.int32)
+
+
 def block_copy_ref(src_pool, dst_pool, ids):
     """``dst_pool[..., ids[m, 1], :] = src_pool[..., ids[m, 0], :]`` in
     place; returns ``dst_pool``.

@@ -13,7 +13,8 @@ return it.  Their bookkeeping is the reference's masked tensor code
 step for step, so it runs on the device without reading values back;
 ``migrate_sequence`` and ``release_sequence`` read the sequence length
 once to bound their loop.  The data path of a migration is the
-``block_copy`` kernel (:mod:`repro_torch.kernels.ops`).
+``block_copy`` kernel, one launch for its K and V pools
+(:func:`repro_torch.kernels.ops.block_copy_pools`).
 
 Where JAX silently clamps an out-of-range read or drops an out-of-range
 write, PyTorch raises, so the reference's behaviour is matched on purpose:
@@ -272,10 +273,10 @@ def migrate_sequence(kv: TieredKV, seq: int, to_tier: int, max_blocks: int,
     The bookkeeping runs block by block in the reference's order (blocks
     past the sequence's length are no-ops there and are skipped here).
     The moved ``(src, dst)`` slot pairs are collected and the data moves
-    in one ``block_copy`` launch per pool (K, V) covering all groups, or
-    none when nothing moved.  Deferring the copies is exact: sources and
-    destinations lie in different pools, so no copy reads a slot that an
-    earlier one of the same call wrote.
+    in one ``block_copy_pools`` launch covering both pools (K, V) and all
+    groups, or none when nothing moved.  Deferring the copies is exact:
+    sources and destinations lie in different pools, so no copy reads a
+    slot that an earlier one of the same call wrote.
     """
     if to_tier == HOT:
         free, top, back, back_top = (kv.hot_free, kv.hot_free_top,
@@ -311,8 +312,7 @@ def migrate_sequence(kv: TieredKV, seq: int, to_tier: int, max_blocks: int,
     if pairs:
         ids = torch.stack(pairs)[torch.stack(moved)]
         if ids.shape[0]:
-            for src_pool, dst_pool in pools:
-                ops.block_copy(src_pool, dst_pool, ids)
+            ops.block_copy_pools(pools, ids)
     return kv
 
 

@@ -7,9 +7,10 @@ are demoted; the last demotion drags its leaf page cold.  RESUME promotes
 them back.  ``radiant=False`` keeps leaf pages where they were allocated
 (the immobile-table baseline), so resumed sequences walk cold pages.
 
-Each decode tick walks the active sequences' tables with one batched
-launch of the ``pt_walk`` kernel and counts, per sequence, whether the
-walk read a COLD leaf page (``EngineStats.cold_walks``).
+Each decode tick walks the active sequences' tables with one launch of
+the ``pt_walk`` kernel, which also reduces each walk to a flag, and
+counts, per sequence, whether the walk read a COLD leaf page
+(``EngineStats.cold_walks``).
 """
 from __future__ import annotations
 
@@ -117,16 +118,18 @@ class TieredServingEngine:
 
     def _cold_walks(self, rids: List[int]) -> List[bool]:
         """Per sequence: does a walk of its table read a COLD leaf page?
-        One ``pt_walk`` launch over all rows; its ``tier`` is the leaf
-        page's tier, -1 through unallocated upper entries.  The leaf
-        entries are the slot column of ``leaf_tier_slot``, passed as a
-        strided view."""
+        One launch gathers the rows of ``upper``, walks them and reduces
+        each row to a flag (``ops.pt_walk_rows_any``; the walk's tier is
+        the leaf page's, -1 through unallocated upper entries); then one
+        read of the R flags.  The leaf entries are the slot column of
+        ``leaf_tier_slot``, passed as a strided view."""
         if not rids:
             return []
-        rows = self.kv.upper[torch.tensor(rids, device=self.device)]
-        entries = self.kv.leaf_tier_slot[:, :, 1]
-        tier, _ = ops.pt_walk(rows, self.kv.leaf_tier, entries, self._vb)
-        return (tier == tkv.COLD).any(dim=1).tolist()
+        rows = torch.tensor(rids, dtype=torch.int32, device=self.device)
+        flags = ops.pt_walk_rows_any(self.kv.upper, rows, self.kv.leaf_tier,
+                                     self.kv.leaf_tier_slot[:, :, 1],
+                                     self._vb, tkv.COLD)
+        return [bool(f) for f in flags.tolist()]
 
     def decode_tick(self, decode_fn) -> Dict[int, int]:
         """One decode step for the active batch.

@@ -88,6 +88,64 @@ def test_block_copy_kernel_matches_plain_version(cuda_device, dtype):
     assert ops.launch_counts()["block_copy"] == len(COPY_SHAPES)
 
 
+# (n_pairs, G, P_src, P_dst, block, M): the serving width at the migrations'
+# M (1, 6) and at M = 128, and blocks of 2.5 and 1.25 chunks of 16 KiB
+POOLS_SHAPES = [(n, 24, 160, 140, (16, 16, 64), m) for n in (1, 2)
+                for m in (1, 6, 128)] + [(2, 3, 40, 24, (20, 16, 64), 6),
+                                         (1, 1, 12, 9, (5, 32, 64), 4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_block_copy_pools_kernel_matches_plain_version(cuda_device, dtype):
+    """One launch over 1 or 2 pool pairs == the plain version per pair;
+    id pairs outside the pools are skipped."""
+    gen = torch.Generator().manual_seed(8)
+    ops.reset_launches()
+    for n_pairs, G, p_src, p_dst, block, M in POOLS_SHAPES:
+        srcs = [torch.randn((G, p_src) + block, generator=gen).to(dtype)
+                for _ in range(n_pairs)]
+        dsts = [torch.randn((G, p_dst) + block, generator=gen).to(dtype)
+                for _ in range(n_pairs)]
+        ids = torch.stack([torch.randperm(p_src, generator=gen)[:M],
+                           torch.randperm(p_dst, generator=gen)[:M]],
+                          1).to(torch.int32)
+        want = [ref.block_copy_ref(s, d.clone(), ids) for s, d in zip(srcs, dsts)]
+        bad = torch.tensor([[p_src, 0], [-1, 1], [0, p_dst]], dtype=torch.int32)
+        got = ops.block_copy_pools(
+            [(s.to(cuda_device), d.to(cuda_device)) for s, d in zip(srcs, dsts)],
+            torch.cat([ids, bad]).to(cuda_device))
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert ops.launch_counts()["block_copy"] == len(POOLS_SHAPES)
+
+
+@pytest.mark.cuda
+def test_pt_walk_rows_any_kernel_matches_plain_version(cuda_device):
+    """Rows gathered, walked and reduced in one launch == the plain
+    version, at the decode ticks' shapes and larger ones, out-of-range
+    queries and row ids included."""
+    gen = torch.Generator().manual_seed(9)
+    ops.reset_launches()
+    cases = [(4, 16, 16, 1, 32), (4, 12, 12, 1, 10), (3, 5, 8, 4, 200),
+             (33, 40, 12, 40, 100), (2, 6, 8, 2, 1000)]
+    for r, n_seqs, n_leaf, max_leaf, n in cases:
+        args = [torch.randint(-1, n_leaf, (n_seqs, max_leaf), generator=gen),
+                torch.randint(-2, n_seqs + 2, (r,), generator=gen),
+                torch.randint(-1, 2, (n_leaf,), generator=gen),
+                torch.randint(-1, 64, (n_leaf, 64, 2), generator=gen),
+                torch.randint(-128, (max_leaf + 1) * 64, (n,), generator=gen)]
+        args = [a.to(torch.int32) for a in args]
+        dev_args = [a.to(cuda_device) for a in args]
+        args[3], dev_args[3] = args[3][:, :, 1], dev_args[3][:, :, 1]
+        for tier in (0, 1, -1):
+            want = ref.pt_walk_rows_any_ref(*args, tier)
+            got = ops.pt_walk_rows_any(*dev_args, tier)
+            assert got.dtype == torch.int32 and torch.equal(got.cpu(), want)
+    assert ops.launch_counts()["pt_walk"] == 3 * len(cases)
+
+
 # (B, KH, G, Dh, P, bs, NB): test_paged_attention_sweep's shapes, G = 5,
 # Dh 32 / 64, and G = 3 / 7 (run on the G = 4 / 8 instances, rows masked)
 ATTN_SHAPES = [(1, 1, 1, 128, 8, 8, 2), (2, 2, 4, 128, 16, 16, 4),

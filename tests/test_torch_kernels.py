@@ -1,5 +1,8 @@
 """The port's table-walk and block-copy kernels against the JAX package's
-Pallas kernels (interpret mode) on the shapes of tests/test_kernels.py.
+Pallas kernels (interpret mode) on the shapes of tests/test_kernels.py,
+and their fused forms (``block_copy_pools`` over several pool pairs,
+``pt_walk_rows_any``: gathered rows walked and reduced to a flag each)
+against those kernels call by call.
 
 On the CPU the port's wrappers run their plain versions; the CUDA
 kernels are held against those plain versions in tests/test_torch_cuda.py.
@@ -172,6 +175,141 @@ def test_block_copy_grouped_matches_jax(G, p_src, p_dst, M, dtype):
                                       np.asarray(want, np.float32))
 
 
+@pytest.mark.parametrize("M", [0, 1, 6])
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+@pytest.mark.parametrize("n_pairs", [1, 2])
+def test_block_copy_pools_match_jax(n_pairs, dtype, G, M):
+    """One call over 1 or 2 pool pairs sharing ``ids`` == one JAX kernel
+    call per pair (and group).  G = 1 takes [P, bs, KH, Dh] pools, G = 3
+    [G, P, bs, KH, Dh] ones; M = 0 leaves the pools as they were (the JAX
+    kernel cannot take M = 0: its index maps read ids[0])."""
+    rng = np.random.default_rng(n_pairs * 1000 + G * 10 + M)
+    groups = None if G == 1 else G
+    pairs = [copy_inputs(rng, 9, 7, (4, 2, 8), M, dtype, groups)
+             for _ in range(n_pairs)]
+    ids = pairs[0][2]
+    tpairs = [(to_torch(s), to_torch(d)) for s, d, _ in pairs]
+    got = ops.block_copy_pools(tpairs, to_torch(ids))
+    assert len(got) == n_pairs
+    for (src, dst, _), (tsrc, tdst), out in zip(pairs, tpairs, got):
+        assert out is tdst                       # in place
+        np.testing.assert_array_equal(as_np(tsrc), np.asarray(src, np.float32))
+        for g in range(G):
+            s, d = (src, dst) if groups is None else (src[g], dst[g])
+            want = d if M == 0 else block_copy_kernel(
+                s, d, jnp.asarray(ids), interpret=True)
+            o = out if groups is None else out[g]
+            np.testing.assert_array_equal(as_np(o), np.asarray(want, np.float32))
+
+
+def rows_any_inputs(rng, r, n_seqs, n_leaf, max_leaf, n):
+    """A table of ``n_seqs`` rows, the ``r`` row ids to walk, and queries
+    past both ends of the upper row.  Leaf page ``l`` has tier ``l % 3 -
+    1``, and each row maps leaf pages of one tier only (rows of tier -1
+    also hold unallocated entries).  The row ids count from the end (-1)
+    or lie past the table (both reach the last row), and the distinct
+    rows they reach take the three tiers in turn, so every tier value is
+    read by some of the walked rows and not by others."""
+    rows = rng.permutation(n_seqs - 1)[:r].astype(np.int32)
+    rows[0] = -1
+    if r >= 4:
+        rows[1] = n_seqs + 2
+    reached = np.clip(np.where(rows < 0, rows + n_seqs, rows), 0, n_seqs - 1)
+    cls = rng.integers(0, 3, n_seqs)
+    for k, row in enumerate(dict.fromkeys(reached.tolist())):
+        cls[row] = k % 3
+    ltier = (np.arange(n_leaf) % 3 - 1).astype(np.int32)
+    upper = np.empty((n_seqs, max_leaf), np.int32)
+    for i in range(n_seqs):
+        upper[i] = rng.choice(np.arange(cls[i], n_leaf, 3), max_leaf)
+        if cls[i] == 0:
+            upper[i, rng.random(max_leaf) < 0.3] = -1
+    lent = rng.integers(-1, 64, (n_leaf, 64)).astype(np.int32)
+    vb = rng.integers(-2 * 64, (max_leaf + 1) * 64, n).astype(np.int32)
+    return upper, rows, ltier, lent, vb
+
+
+# (R, n_seqs, n_leaf, max_leaf, N): the serve_tiered and kv_tiering decode
+# ticks' shapes, and larger ones (several warps per row's queries, rows
+# over several CTAs)
+ROWS_ANY_CASES = [(4, 16, 16, 1, 32), (4, 12, 12, 1, 10), (3, 5, 8, 4, 200),
+                  (33, 40, 12, 40, 100)]
+
+
+@pytest.mark.parametrize("tier", [0, 1, -1])
+@pytest.mark.parametrize("r,n_seqs,n_leaf,max_leaf,n", ROWS_ANY_CASES)
+def test_pt_walk_rows_any_matches_jax(r, n_seqs, n_leaf, max_leaf, n, tier):
+    """flags[r] == any over the queries of (JAX walk of the gathered row
+    == tier), the row gathered as JAX gathers, the walk the TPU kernel in
+    interpret mode, the reduction numpy's."""
+    rng = np.random.default_rng(r * 100 + n + tier)
+    upper, rows, ltier, lent, vb = rows_any_inputs(rng, r, n_seqs, n_leaf,
+                                                   max_leaf, n)
+    gathered = np.asarray(jnp.asarray(upper)[jnp.asarray(rows)])
+    want = [int((jax_walk(row, ltier, lent, vb)[0] == tier).any())
+            for row in gathered]
+    strided = to_torch(np.stack([lent, lent], -1))[:, :, 1]
+    got = ops.pt_walk_rows_any(to_torch(upper), to_torch(rows),
+                               to_torch(ltier), strided, to_torch(vb), tier)
+    assert got.dtype == torch.int32 and got.shape == (r,)
+    assert got.tolist() == want
+    assert 0 < sum(want) < r
+
+
+def test_pt_walk_rows_any_out_of_range_queries_match_jax():
+    """The out-of-range table above, through the flags."""
+    case = {k: np.asarray(v, np.int32) for k, v in OUT_OF_RANGE.items()}
+    upper = np.stack([case["upper"], np.full(4, -1, np.int32)])
+    rest = [to_torch(case[k]) for k in ("leaf_tier", "leaf_entries", "vb")]
+    for rows, tier in (([0, 1, 0], 1), ([1, -2, 5], -1), ([0, -1], 0)):
+        gathered = np.asarray(jnp.asarray(upper)[jnp.asarray(rows)])
+        want = [int((jax_walk(row, *(case[k] for k in (
+            "leaf_tier", "leaf_entries", "vb")))[0] == tier).any())
+            for row in gathered]
+        got = ops.pt_walk_rows_any(to_torch(upper),
+                                   torch.tensor(rows, dtype=torch.int32),
+                                   *rest, tier)
+        assert got.tolist() == want
+
+
+def _pool(p=4, dtype=torch.float32):
+    return torch.zeros(2, p, 4, 2, 8, dtype=dtype)
+
+
+# (what, pairs, message): each breaks one rule of block_copy_pools
+BAD_POOL_PAIRS = [
+    ("no pair", lambda: [], "1 to 2 pool pairs"),
+    ("five pairs", lambda: [(_pool(), _pool()) for _ in range(5)],
+     "1 to 2 pool pairs"),
+    ("second pair of another shape", lambda: [(_pool(), _pool()),
+                                              (_pool(), _pool(6))],
+     "shapes and dtype of the first"),
+    ("second pair of another dtype", lambda: [
+        (_pool(), _pool()), (_pool(dtype=torch.bfloat16),
+                             _pool(dtype=torch.bfloat16))],
+     "shapes and dtype of the first"),
+    ("a source that is another pair's destination", lambda: (
+        lambda a, b, c: [(a, b), (b, c)])(_pool(), _pool(), _pool()),
+     "different pools"),
+    ("a repeated destination", lambda: (
+        lambda a, b, c: [(a, c), (b, c)])(_pool(), _pool(), _pool()),
+     "destination pool repeats"),
+    ("second pair off 16 bytes", lambda: [
+        (_pool(), _pool()),
+        (torch.zeros(2 * 4 * 4 * 2 * 8 + 1)[1:].view(2, 4, 4, 2, 8), _pool())],
+     "16-byte boundary"),
+]
+
+
+@pytest.mark.parametrize("what,pairs,msg", BAD_POOL_PAIRS,
+                         ids=[b[0] for b in BAD_POOL_PAIRS])
+def test_block_copy_pools_rejects_bad_pairs(what, pairs, msg):
+    ids = torch.zeros(1, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match=msg):
+        ops.block_copy_pools(pairs(), ids)
+
+
 def test_wrappers_reject_bad_arguments():
     walk = [torch.zeros(2, dtype=torch.int32), torch.zeros(4, dtype=torch.int32),
             torch.zeros(4, 64, dtype=torch.int32), torch.zeros(8, dtype=torch.int32)]
@@ -197,6 +335,11 @@ def test_wrappers_reject_bad_arguments():
         ops.block_copy(pool, pool, ids)
     with pytest.raises(ValueError, match=r"int32 \[M, 2\]"):
         ops.block_copy(pool, pool.clone(), ids.long())
+    table = torch.zeros(3, 2, dtype=torch.int32)
+    with pytest.raises(ValueError, match="int32"):
+        ops.pt_walk_rows_any(table, walk[0].long(), *walk[1:], 1)
+    with pytest.raises(ValueError, match=r"\[n_rows, max_leaf\]"):
+        ops.pt_walk_rows_any(walk[0], walk[0], *walk[1:], 1)
 
 
 def test_plain_versions_count_no_launches():
@@ -204,7 +347,13 @@ def test_plain_versions_count_no_launches():
     rng = np.random.default_rng(0)
     ops.pt_walk(*map(to_torch, walk_inputs(rng, 4, 64, 16)))
     pool = torch.zeros(2, 4, 4, 2, 8)
-    ops.block_copy(pool, pool.clone(), torch.tensor([[0, 1]], dtype=torch.int32))
+    ids = torch.tensor([[0, 1]], dtype=torch.int32)
+    ops.block_copy(pool, pool.clone(), ids)
+    ops.block_copy_pools([(pool, pool.clone()), (pool.clone(), pool.clone())],
+                         ids)
+    table = torch.zeros(3, 2, dtype=torch.int32)
+    ops.pt_walk_rows_any(table, torch.tensor([0, 2], dtype=torch.int32),
+                         *map(to_torch, walk_inputs(rng, 4, 64, 16)[1:]), 1)
     assert ops.launch_counts() == {"pt_walk": 0, "block_copy": 0,
                                    "paged_attention": 0}
 

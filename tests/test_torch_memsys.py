@@ -171,3 +171,49 @@ def test_leaf_trigger_counts_per_block():
     assert_same(b.j, b.p, "promote hot")
     assert int(b.p.stats[tkv.STAT_LEAF_ALREADY]) == already + 5
 
+
+
+@pytest.mark.parametrize("seed", range(3))
+def test_migrate_makes_one_copy_call_per_moving_migration(seed, monkeypatch):
+    """``migrate_sequence`` moves a migration's blocks with exactly one
+    ``block_copy_pools`` call over the K and V pools when it moved blocks,
+    and makes none when it moved nothing (counted by wrapping the ops
+    function, on the pool sizes that exhaust the hot pool)."""
+    from repro_torch.kernels import ops
+    calls = []
+    copy = ops.block_copy_pools
+
+    def counted(pairs, ids, **kwargs):
+        pairs = tuple(pairs)
+        calls.append((len(pairs), int(ids.shape[0])))
+        return copy(pairs, ids, **kwargs)
+
+    monkeypatch.setattr(ops, "block_copy_pools", counted)
+    rng = np.random.default_rng(200 + seed)
+    kv = tkv.init(G, 6, 64, BS, KH, DH, 3, MAX_SEQ, dtype=torch.float32,
+                  device="cpu")
+    moving = still = 0
+    for _ in range(40):
+        seq = int(rng.integers(0, 3))
+        op = int(rng.integers(0, 4))
+        if op == 0:
+            for _ in range(int(rng.integers(1, 3 * BS))):
+                k = torch.from_numpy(rng.normal(size=(G, KH, DH)).astype(
+                    np.float32))
+                tkv.append_token(kv, seq, k, k)
+            continue
+        if op == 3:
+            tkv.release_sequence(kv, seq, MAXB)
+            continue
+        before = len(calls)
+        moved = int(kv.stats[tkv.STAT_BLK_PROMOTE] + kv.stats[tkv.STAT_BLK_DEMOTE])
+        tkv.migrate_sequence(kv, seq, tkv.HOT if op == 1 else tkv.COLD, MAXB)
+        moved = int(kv.stats[tkv.STAT_BLK_PROMOTE]
+                    + kv.stats[tkv.STAT_BLK_DEMOTE]) - moved
+        assert len(calls) - before == (1 if moved else 0)
+        if moved:
+            assert calls[-1] == (2, moved)
+            moving += 1
+        else:
+            still += 1
+    assert moving > 0 and still > 0

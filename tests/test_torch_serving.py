@@ -159,3 +159,19 @@ def test_walk_equals_host_check():
             for u in upper]
     got = eng._cold_walks([0, 1, 2, 3])
     assert got == want and any(got) and not all(got)
+
+
+def test_cold_walks_one_walk_call_per_tick(monkeypatch):
+    """Each decode tick walks its active rows with one ``pt_walk_rows_any``
+    call (gather, walk and reduction in one launch on the card)."""
+    rows = []
+    walk = ops.pt_walk_rows_any
+
+    def counted(upper, rids, *args):
+        rows.append(int(rids.shape[0]))
+        return walk(upper, rids, *args)
+
+    monkeypatch.setattr(ops, "pt_walk_rows_any", counted)
+    res = st.serve(st.PRESSURE, radiant=False, geometry=GEO, device="cpu")
+    assert len(rows) == res.stats.steps and sum(rows) == res.stats.tokens
+    assert res.stats.cold_walks > 0
