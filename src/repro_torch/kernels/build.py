@@ -36,8 +36,10 @@ SIGNATURES = {
     "empty_launch": [_c.c_void_p],
     "block_copy_launch": [_c.c_void_p] * 5 + [_c.c_int] * 4
                          + [_c.c_longlong, _c.c_void_p],
-    "paged_attention_launch": [_c.c_void_p] * 7 + [_c.c_int] * 9
+    "paged_attention_launch": [_c.c_void_p] * 8 + [_c.c_int] * 9
                               + [_c.c_void_p],
+    "paged_attention_occupancy": [_c.c_int, _c.c_int, _c.c_void_p],
+    "paged_attention_capture_id": [_c.c_void_p, _c.c_void_p],
 }
 
 

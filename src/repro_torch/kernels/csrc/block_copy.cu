@@ -25,8 +25,9 @@
 // copies: it reads the item's ids, `cp.async.bulk` global -> shared
 // completes on an mbarrier, `cp.async.bulk` shared -> global writes the
 // chunk back in a bulk group, and the next item's load waits only until
-// that store has read the buffer (`wait_group.read`).  An item whose ids
-// lie outside the pools is skipped.  The only alignment assumed is what
+// that store has read the buffer (`wait_group.read`).  Ids outside the
+// pools follow the JAX oracle (below): an item whose destination lies
+// outside its pool is skipped.  The only alignment assumed is what
 // ops.block_copy checks: 16-byte block sizes and 16-byte pool bases, so
 // every chunk starts and ends on 16 bytes, as the bulk copies require.
 #include <cuda_runtime.h>
@@ -78,8 +79,13 @@ __global__ void __launch_bounds__(32) block_copy_kernel(
     const uint32_t pg = rest / (uint32_t)sh.m;        // pair * groups + g
     const bool second = pg >= (uint32_t)sh.groups;
     const int g = (int)(second ? pg - sh.groups : pg);
-    const int s = __ldg(ids + 2 * m), d = __ldg(ids + 2 * m + 1);
-    if (s < 0 || s >= sh.p_src || d < 0 || d >= sh.p_dst) continue;
+    // ids follow the JAX oracle's gather and scatter: a negative id counts
+    // from the end once, a source is then clamped into the pool, and a
+    // destination still outside its pool is dropped
+    int s = __ldg(ids + 2 * m), d = __ldg(ids + 2 * m + 1);
+    s = min(max(s < 0 ? s + sh.p_src : s, 0), sh.p_src - 1);
+    if (d < 0) d += sh.p_dst;
+    if (d < 0 || d >= sh.p_dst) continue;
     const int64_t off = (int64_t)c * kChunk;
     const int64_t left = sh.block_bytes - off;
     const uint32_t bytes = (uint32_t)(left < kChunk ? left : kChunk);

@@ -99,9 +99,13 @@ def block_copy_pools(pairs, ids, *, name: str = "block_copy_pools"):
     every pair has the shapes and dtype of the first.  No source may be a
     destination, and no destination repeats.  A block's size in bytes and
     every pool's base address must be multiples of 16.  ``ids`` is
-    ``i32[M, 2]`` (src, dst), shared by the pairs, in range, destinations
-    distinct.  At most ``MAX_POOL_PAIRS`` pairs (2: a migration's K and V
-    pools).
+    ``i32[M, 2]`` (src, dst), shared by the pairs.  Ids outside the pools
+    follow the JAX oracle: a negative id counts from the end of its pool
+    once, a source is then clamped into ``[0, P_src - 1]``, and a pair
+    whose destination is still outside ``[0, P_dst)`` is dropped.  Where
+    two pairs name one destination, which one is written last is
+    undefined.  At most ``MAX_POOL_PAIRS`` pairs (2: a migration's K and
+    V pools).
     """
     pairs = tuple(pairs)
     _check(1 <= len(pairs) <= MAX_POOL_PAIRS, name,
@@ -159,7 +163,13 @@ def paged_attention(q, k_pool, v_pool, tables, lengths):
     Dh]``, ``tables i32[B, NB]``, ``lengths i32[B]`` -> ``[B, H, Dh]``.
     Query head ``h`` reads KV head ``h // G``.  See
     ``ref.paged_attention_ref`` for the edge semantics (``-1`` entries,
-    ``lengths == 0``)."""
+    ``lengths == 0``).  Both routes take float32, bfloat16 and float16,
+    any head dim that is a multiple of 16 up to 256 and any block size
+    of at least 1; they refuse float64 and every other head dim
+    (``paged_attention.check_args``).  On the card a call is one launch
+    whose splits merge through arrival counters kept per (device,
+    stream): calls on one stream follow each other, and calls on two
+    streams never share counters."""
     _check(q.dim() == 3, "paged_attention", f"q must be [B, H, Dh], got "
            f"{tuple(q.shape)}")
     B, H, Dh = q.shape
@@ -179,9 +189,8 @@ def paged_attention(q, k_pool, v_pool, tables, lengths):
 
 def launch_counts() -> dict:
     """Calls that launched each kernel since the last
-    :func:`reset_launches` (one ``paged_attention`` call launches its
-    partial and its combine kernel; ``pt_walk_rows_any`` counts as a
-    ``pt_walk`` launch, ``block_copy_pools`` as one ``block_copy`` launch
+    :func:`reset_launches` (one ``paged_attention`` call is one launch;
+    ``pt_walk_rows_any`` counts as a ``pt_walk`` launch, ``block_copy_pools`` as one ``block_copy`` launch
     whatever its number of pairs)."""
     return {"pt_walk": _pt_walk.launches, "block_copy": _block_copy.launches,
             "paged_attention": _paged_attention.launches}

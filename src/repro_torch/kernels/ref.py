@@ -53,6 +53,25 @@ def paged_attention_public(q, k_pool, v_pool, tables, lengths):
                                tables, lengths).reshape(B, H, Dh)
 
 
+# How far the 16-bit kernel may stray from the f32 answer on its own
+# inputs, per row: the largest error of a row of Dh outputs over the row's
+# rms.  A long row's outputs average thousands of positions and are small
+# (about 0.02 at 8192 tokens of N(0, 1) values), so an absolute limit the
+# size of the JAX tests' would let a wrong merge through; one chunk of a
+# sequence left out moves a row by over half its rms.  The limits are about
+# three times the rounding of P and of the output that the tests measure
+# (test_torch_paged_attention.py: bf16 about 0.01, f16 about 0.0015).
+ATTN_ROW_TOL = {torch.bfloat16: 3e-2, torch.float16: 4e-3}
+
+
+def attention_row_error(got, want):
+    """``[..., Dh]`` -> ``[...]``: each row's largest absolute error over
+    the rms of ``want``'s row (both taken in f32)."""
+    want = want.float()
+    rms = want.pow(2).mean(-1).sqrt().clamp(min=1e-30)
+    return (got.float() - want).abs().amax(-1) / rms
+
+
 def paged_attention_inputs(B, KH, G, Dh, P, bs, NB, dtype, lengths, seed,
                            device="cpu"):
     """Inputs of ``ops.paged_attention`` for holding the kernel against
@@ -70,6 +89,29 @@ def paged_attention_inputs(B, KH, G, Dh, P, bs, NB, dtype, lengths, seed,
     used = torch.clamp(-(-lengths // bs), min=1)
     tables[torch.arange(NB, device=device)[None, :] >= used[:, None]] = -1
     return q, kp, vp, tables.to(torch.int32), lengths.to(torch.int32)
+
+
+# (B, KH, G, Dh, P, bs, NB) at which the card's checks (chip_smoke.py
+# phase [7], tests/test_torch_cuda.py) hold the attention kernel to this
+# plain version: tests/test_kernels.py's sweep, G = 5, Dh 32 / 64, groups
+# run on larger instances (3 and 7 on 4 and 8 rows for f32, 12 in two
+# chunks of 8), head dims between instances (16, 80, 192), and blocks of
+# 1, 4 and 12 positions
+ATTN_TEST_SHAPES = [
+    (1, 1, 1, 128, 8, 8, 2), (2, 2, 4, 128, 16, 16, 4),
+    (3, 4, 2, 256, 32, 8, 5), (2, 2, 8, 128, 16, 32, 3),
+    (2, 2, 5, 64, 64, 16, 12), (4, 3, 1, 32, 48, 8, 9),
+    (2, 2, 3, 64, 16, 16, 4), (3, 1, 7, 128, 24, 8, 6),
+    (2, 2, 1, 64, 48, 4, 20), (2, 2, 5, 80, 32, 16, 10),
+    (2, 1, 7, 80, 64, 4, 24), (2, 2, 12, 128, 40, 4, 16),
+    (2, 1, 5, 192, 32, 16, 12), (3, 1, 12, 192, 48, 4, 12),
+    (2, 2, 1, 192, 24, 12, 8), (2, 1, 7, 16, 40, 1, 17)]
+# (B, KH, G, Dh, P, bs, NB, lengths): -1 entries past short lengths, and
+# rows of length 0 (the oracle's uniform mean of V)
+ATTN_FIXED_LENGTHS = [
+    (3, 2, 2, 64, 40, 8, 6, [9, 48, 20]), (3, 2, 2, 64, 12, 8, 4, [9, 32, 0]),
+    (3, 2, 5, 80, 40, 4, 12, [0, 45, 3]),
+    (3, 1, 12, 192, 24, 4, 6, [17, 0, 24])]
 
 
 def pt_walk_ref(upper, leaf_tier, leaf_entries, vb):
@@ -123,11 +165,31 @@ def block_copy_ref(src_pool, dst_pool, ids):
     Pools are ``[P, bs, KH, Dh]`` or, with a leading group axis,
     ``[G, P, bs, KH, Dh]`` (one call then copies the pairs in every
     group).  Source and destination pools may hold different ``P``.
+
+    Ids outside the pools follow the JAX oracle (``dst.at[ids[:, 1]].set(
+    src[ids[:, 0]])``): a negative id counts from the end of its pool once;
+    a source is then clamped into ``[0, P_src - 1]``, and a pair whose
+    destination is still outside ``[0, P_dst)`` is dropped.
     """
+    lead = dst_pool.dim() - 4
+    p_src, p_dst = src_pool.shape[lead], dst_pool.shape[lead]
+    if ids.shape[0] == 0:
+        return dst_pool
     src = ids[:, 0].long()
     dst = ids[:, 1].long()
-    if dst_pool.dim() == 5:
-        dst_pool[:, dst] = src_pool[:, src]
+    src = torch.where(src < 0, src + p_src, src).clamp(0, p_src - 1)
+    dst = torch.where(dst < 0, dst + p_dst, dst)
+    keep = (dst >= 0) & (dst < p_dst)
+    # a dropped pair repeats the first kept one (the same write twice), so
+    # dropping waits on nothing on the device; with none kept, the first
+    # pair's clamped destination is written with its own block
+    first = keep.int().argmax().reshape(1)     # a tensor: no host read
+    src = torch.where(keep, src, src[first])
+    dst = torch.where(keep, dst, dst[first]).clamp(0, p_dst - 1)
+    vals = torch.where(keep.any(), src_pool.index_select(lead, src),
+                       dst_pool.index_select(lead, dst[:1]))
+    if lead:
+        dst_pool[:, dst] = vals
     else:
-        dst_pool[dst] = src_pool[src]
+        dst_pool[dst] = vals
     return dst_pool

@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import paged_attention as pa
 
 # (n_leaf, fanout, n): the walk shapes of tests/test_kernels.py
 WALK_SHAPES = [(4, 64, 256), (16, 64, 512), (8, 128, 1024), (8, 128, 512),
@@ -98,8 +99,11 @@ POOLS_SHAPES = [(n, 24, 160, 140, (16, 16, 64), m) for n in (1, 2)
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_block_copy_pools_kernel_matches_plain_version(cuda_device, dtype):
-    """One launch over 1 or 2 pool pairs == the plain version per pair;
-    id pairs outside the pools are skipped."""
+    """One launch over 1 or 2 pool pairs == the plain version per pair,
+    id pairs outside the pools included: JAX's answer, a negative id
+    counted from the end once, a source clamped, a destination still
+    outside its pool dropped.  The valid pairs' destinations lie in
+    ``[2, p_dst - 3)``, so no destination repeats."""
     gen = torch.Generator().manual_seed(8)
     ops.reset_launches()
     for n_pairs, G, p_src, p_dst, block, M in POOLS_SHAPES:
@@ -108,13 +112,18 @@ def test_block_copy_pools_kernel_matches_plain_version(cuda_device, dtype):
         dsts = [torch.randn((G, p_dst) + block, generator=gen).to(dtype)
                 for _ in range(n_pairs)]
         ids = torch.stack([torch.randperm(p_src, generator=gen)[:M],
-                           torch.randperm(p_dst, generator=gen)[:M]],
+                           torch.randperm(p_dst - 5, generator=gen)[:M] + 2],
                           1).to(torch.int32)
+        # copies p_src - 1 -> 0, p_src - 1 -> 1, 0 -> p_dst - 3; drops
+        # the pairs with destinations p_dst and -p_dst - 1
+        bad = torch.tensor([[p_src, 0], [-1, 1], [0, p_dst],
+                            [p_src + 5, -p_dst - 1], [-p_src - 3, -3]],
+                           dtype=torch.int32)
+        ids = torch.cat([ids, bad])
         want = [ref.block_copy_ref(s, d.clone(), ids) for s, d in zip(srcs, dsts)]
-        bad = torch.tensor([[p_src, 0], [-1, 1], [0, p_dst]], dtype=torch.int32)
         got = ops.block_copy_pools(
             [(s.to(cuda_device), d.to(cuda_device)) for s, d in zip(srcs, dsts)],
-            torch.cat([ids, bad]).to(cuda_device))
+            ids.to(cuda_device))
         torch.cuda.synchronize()
         for g, w in zip(got, want):
             assert torch.equal(g.cpu(), w)
@@ -146,30 +155,25 @@ def test_pt_walk_rows_any_kernel_matches_plain_version(cuda_device):
     assert ops.launch_counts()["pt_walk"] == 3 * len(cases)
 
 
-# (B, KH, G, Dh, P, bs, NB): test_paged_attention_sweep's shapes, G = 5,
-# Dh 32 / 64, and G = 3 / 7 (run on the G = 4 / 8 instances, rows masked)
-ATTN_SHAPES = [(1, 1, 1, 128, 8, 8, 2), (2, 2, 4, 128, 16, 16, 4),
-               (3, 4, 2, 256, 32, 8, 5), (2, 2, 8, 128, 16, 32, 3),
-               (2, 2, 5, 64, 64, 16, 12), (4, 3, 1, 32, 48, 8, 9),
-               (2, 2, 3, 64, 16, 16, 4), (3, 1, 7, 128, 24, 8, 6)]
-ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+ATTN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 1e-2}
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", list(ATTN_TOL))
 def test_paged_attention_kernel_matches_plain_version(cuda_device, dtype):
+    """f32 on CUDA cores, bf16 and f16 on tensor cores, at
+    ``ref.ATTN_TEST_SHAPES`` (head dims 16 to 256, blocks of 1 to 32, G
+    1 to 12), with -1 entries past each length and rows of length 0.
+    Tolerances: the JAX tests' (f32 1e-5, bf16 2e-2); f16 1e-2 (reason
+    in tests/test_torch_paged_attention.py)."""
     gen = torch.Generator().manual_seed(7)
     tol = ATTN_TOL[dtype]
     cases = [ref.paged_attention_inputs(
         *shape, dtype, torch.randint(1, shape[6] * shape[5] + 1, (shape[0],),
                                      generator=gen), seed)
-        for seed, shape in enumerate(ATTN_SHAPES)]
-    # -1 entries past each length, and a row with lengths == 0 (the
-    # oracle's uniform mean of V, -1 read as block 0)
-    cases.append(ref.paged_attention_inputs(3, 2, 2, 64, 40, 8, 6, dtype,
-                                            [9, 48, 20], 100))
-    cases.append(ref.paged_attention_inputs(3, 2, 2, 64, 12, 8, 4, dtype,
-                                            [9, 32, 0], 101))
+        for seed, shape in enumerate(ref.ATTN_TEST_SHAPES)]
+    cases += [ref.paged_attention_inputs(*case[:7], dtype, case[7], 100 + i)
+              for i, case in enumerate(ref.ATTN_FIXED_LENGTHS)]
     ops.reset_launches()
     for args in cases:
         want = ref.paged_attention_public(*args)
@@ -178,4 +182,51 @@ def test_paged_attention_kernel_matches_plain_version(cuda_device, dtype):
         assert got.dtype == dtype and got.shape == want.shape
         torch.testing.assert_close(got.cpu().float(), want.float(),
                                    atol=tol, rtol=tol)
+        if dtype in ref.ATTN_ROW_TOL:          # row by row, against f32
+            want32 = ref.paged_attention_public(*[
+                a.float() if a.is_floating_point() else a for a in args])
+            assert float(ref.attention_row_error(got.cpu(), want32).max()) \
+                <= ref.ATTN_ROW_TOL[dtype]
     assert ops.launch_counts()["paged_attention"] == len(cases)
+    # the one-launch kernel leaves its arrival counters at 0 for the next
+    # call
+    assert all(int(b.abs().sum()) == 0 for b in pa._arrivals.values())
+
+
+@pytest.mark.cuda
+def test_paged_attention_streams_and_graphs_keep_their_own_counters(
+        cuda_device):
+    """Calls on two streams at once, and two CUDA graphs captured on one
+    stream and replayed the later first, each merge their splits right:
+    every stream and every capture has its own arrival counters."""
+    cases = [ref.paged_attention_inputs(8, 8, 5, 128, 4352, 16, 512,
+                                        torch.bfloat16, [8192, 300, 4000, 17,
+                                                         0, 8000, 1, 6000],
+                                        seed, device=cuda_device)
+             for seed in (1, 2)]
+    wants = [ref.paged_attention_public(*args) for args in cases]
+    tol = ATTN_TOL[torch.bfloat16]
+    streams = [torch.cuda.Stream() for _ in cases]
+    torch.cuda.synchronize()
+    outs = [[], []]
+    for _ in range(20):
+        for i, (args, stream) in enumerate(zip(cases, streams)):
+            with torch.cuda.stream(stream):
+                outs[i].append(ops.paged_attention(*args))
+    torch.cuda.synchronize()
+    for out, want in zip(outs, wants):
+        for got in out:
+            torch.testing.assert_close(got.float(), want.float(), atol=tol,
+                                       rtol=tol)
+    graphs, graph_outs = [], []
+    for args in cases:
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            graph_outs.append(ops.paged_attention(*args))
+        graphs.append(graph)
+    for i in (1, 0, 1):
+        graphs[i].replay()
+        torch.cuda.synchronize()
+        torch.testing.assert_close(graph_outs[i].float(), wants[i].float(),
+                                   atol=tol, rtol=tol)
+    assert all(int(b.abs().sum()) == 0 for b in pa._arrivals.values())

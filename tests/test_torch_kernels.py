@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
+from repro.kernels import ref as jref
 from repro.kernels.block_copy import block_copy_kernel
 from repro.kernels.pt_walk import pt_walk_kernel
 from repro_torch.kernels import ops
@@ -201,6 +203,78 @@ def test_block_copy_pools_match_jax(n_pairs, dtype, G, M):
                 s, d, jnp.asarray(ids), interpret=True)
             o = out if groups is None else out[g]
             np.testing.assert_array_equal(as_np(o), np.asarray(want, np.float32))
+
+
+# (src, dst) pairs outside a pool of P = 4, and what JAX's oracle does
+# with each (src -> dst, or None where it writes nothing): a negative id
+# counts from the end once, a source is then clamped into the pool, a
+# destination still outside it is dropped
+OUT_OF_RANGE_IDS = [([4, 0], (3, 0)), ([-1, 1], (3, 1)), ([0, 4], None),
+                    ([3, -2], (3, 2)), ([-5, 0], (0, 0)), ([0, -5], None),
+                    ([7, 2], (3, 2))]
+
+
+@pytest.mark.parametrize("pools", [False, True],
+                         ids=["block_copy", "block_copy_pools"])
+@pytest.mark.parametrize("pair,copies", OUT_OF_RANGE_IDS,
+                         ids=[str(p) for p, _ in OUT_OF_RANGE_IDS])
+def test_block_copy_out_of_range_ids_match_jax(pair, copies, pools):
+    """One id pair outside the pools: the port's plain route equals JAX's
+    oracle ``ref.block_copy_ref`` and its ``ops.block_copy`` (off the
+    TPU), through ``ops.block_copy`` and through ``ops.block_copy_pools``
+    over two pool pairs."""
+    rng = np.random.default_rng(abs(pair[0]) * 10 + abs(pair[1]))
+    srcs = [jnp.asarray(rng.normal(size=(4, 2, 1, 8)), jnp.float32)
+            for _ in range(2)]
+    dsts = [jnp.asarray(rng.normal(size=(4, 2, 1, 8)), jnp.float32)
+            for _ in range(2)]
+    ids = np.asarray([pair], np.int32)
+    tsrcs, tdsts = [to_torch(a) for a in srcs], [to_torch(a) for a in dsts]
+    if pools:
+        got = ops.block_copy_pools(list(zip(tsrcs, tdsts)), to_torch(ids))
+    else:
+        got = [ops.block_copy(tsrcs[0], tdsts[0], to_torch(ids))]
+    for src, dst, out in zip(srcs, dsts, got):
+        want = jref.block_copy_ref(src, dst, jnp.asarray(ids))
+        np.testing.assert_array_equal(
+            np.asarray(jops.block_copy(src, dst, jnp.asarray(ids))), want)
+        np.testing.assert_array_equal(as_np(out), np.asarray(want))
+        expect = np.asarray(dst).copy()
+        if copies is not None:
+            expect[copies[1]] = np.asarray(src)[copies[0]]
+        np.testing.assert_array_equal(as_np(out), expect)
+
+
+@pytest.mark.parametrize("G", [1, 3])
+@pytest.mark.parametrize("dtype", [jnp.float32, jnp.bfloat16])
+def test_block_copy_out_of_range_ids_across_pool_sizes_match_jax(dtype, G):
+    """Pools of 6 and 3 blocks (each id counted from the end of its own
+    pool), in range and out of range ids mixed, no destination repeated:
+    one ``block_copy_pools`` call over two pairs (and ``block_copy`` over
+    the first) equals JAX's oracle group by group."""
+    rng = np.random.default_rng(G * 7)
+    lead = () if G == 1 else (G,)
+    srcs = [jnp.asarray(rng.normal(size=lead + (6, 4, 2, 8)), dtype)
+            for _ in range(2)]
+    dsts = [jnp.asarray(rng.normal(size=lead + (3, 4, 2, 8)), dtype)
+            for _ in range(2)]
+    # copies 5 -> 2, 0 -> 1 (-7 -> -1 -> 0), 5 -> 0 (9 clamped, -3 -> 0);
+    # drops the pairs with destinations 3 and -4
+    ids = np.asarray([[-1, -1], [2, 3], [-7, 1], [4, -4], [9, -3]], np.int32)
+    tpairs = [(to_torch(s), to_torch(d)) for s, d in zip(srcs, dsts)]
+    got = ops.block_copy_pools(tpairs, to_torch(ids))
+    first = ops.block_copy(to_torch(srcs[0]), to_torch(dsts[0]), to_torch(ids))
+    for src, dst, out in zip(srcs, dsts, got):
+        for g in range(G):
+            s, d = (src, dst) if G == 1 else (src[g], dst[g])
+            o = out if G == 1 else out[g]
+            want = np.asarray(jref.block_copy_ref(s, d, jnp.asarray(ids)),
+                              np.float32)
+            np.testing.assert_array_equal(as_np(o), want)
+            expect = np.asarray(d, np.float32).copy()
+            expect[[2, 1, 0]] = np.asarray(s, np.float32)[[5, 0, 5]]
+            np.testing.assert_array_equal(as_np(o), expect)
+    np.testing.assert_array_equal(as_np(first), as_np(got[0]))
 
 
 def rows_any_inputs(rng, r, n_seqs, n_leaf, max_leaf, n):
