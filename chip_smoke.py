@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's tiered paged-KV server and its paged decode
-attention on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's tiered paged-KV server, its paged decode
+attention and its tiered-memory simulator on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -47,7 +47,27 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    call and read just after; (c) the kernel (one launch per call), its
    plain version and ``scaled_dot_product_attention`` on K/V gathered
    beforehand, timed;
-8. print the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
+8. ``alloc_scan``, the simulator's allocator scan, against its plain
+   version on the card, exactly: T = 32 on N = 4 and N = 6 nodes (and a
+   middle tier left empty), L = 1 and 8 lanes, every pair of data and PT
+   policy codes, THP on and off, free counts near the watermark and near
+   zero (it prints how often the fast, slow, reclaim and failing paths
+   occurred); its time at the populate shape beside an empty kernel;
+9. the quickstart (``repro_torch.quickstart``) on the card at full size:
+   ``benchmark_machine()``, the 16,384-step ``kv_store`` trace, Linux
+   first-touch and Radiant BHi+Mig, held to the golden file of the JAX
+   package's outputs (``src/repro_torch/core/golden/quickstart.json``; the
+   trace's digest first, then every summary key and the last and
+   populate-phase rows of every timeline key: integers exact, cycles to
+   rtol 1e-5), the step loop under ``torch.cuda.set_sync_debug_mode(
+   "error")``, ``alloc_scan`` launches == steps with a fault; wall clock
+   and steps/s per policy, and (counted last, after every timed run)
+   device activities per populate and run-phase step;
+10. the card against the port's own CPU route (worker processes), field
+   for field over the final state and the timeline, at footprint 2^14 and
+   512 run steps: tests/test_core_oracle.py's six policies on
+   ``benchmark_machine()``, ``tpp()`` and ``nomad()`` on ``cxl_machine()``;
+11. print the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device it exits 1 and prints no result.
 """
@@ -81,6 +101,365 @@ def card_line() -> str:
 def check(cond: bool, what: str) -> None:
     if not cond:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
+
+
+def device_ms(calls, reps=50, rounds=7):
+    """Median device time per call: ``reps`` calls captured in one CUDA
+    graph (so host launch cost is left out), replayed ``rounds`` times
+    between CUDA events."""
+    import torch
+    calls()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        calls()
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            calls()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / reps)
+    return statistics.median(times)
+
+
+def host_ms(calls, reps=200):
+    """Wall time per eager call, launch overhead included."""
+    import torch
+    calls()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        calls()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+# -- the simulator (phases 8-10) ---------------------------------------------
+
+# tests/test_core_oracle.py's six policy bundles (kwargs of PolicyConfig),
+# run in phase [10] on benchmark_machine(); tpp() and nomad() run there on
+# cxl_machine()
+ORACLE_POLICIES = [
+    dict(data_policy=0, pt_policy=10, mig=False, autonuma=False),
+    dict(data_policy=0, pt_policy=10, mig=False, autonuma=True,
+         autonuma_period=16, autonuma_budget=32),
+    dict(data_policy=1, pt_policy=12, mig=True, autonuma=True,
+         autonuma_period=16, autonuma_budget=32),
+    dict(data_policy=0, pt_policy=12, mig=True, autonuma=True,
+         autonuma_period=16, autonuma_budget=32),
+    dict(data_policy=0, pt_policy=11, mig=False, autonuma=False),
+    dict(data_policy=1, pt_policy=10, mig=False, autonuma=True,
+         autonuma_period=16, autonuma_budget=32, autonuma_exchange=False),
+]
+REDUCED = dict(footprint=1 << 14, run_steps=512)     # phase [10]'s trace
+
+
+def sim_cases():
+    """(name, machine, policy) of phase [10]."""
+    from repro_torch.core import config as cfg
+    cases = [(f"oracle policy {i} ({cfg.PolicyConfig(**kw).label()})",
+              cfg.benchmark_machine(), cfg.PolicyConfig(**kw))
+             for i, kw in enumerate(ORACLE_POLICIES)]
+    cases += [(f"{fn} on cxl_machine", cfg.cxl_machine(), getattr(cfg, fn)())
+              for fn in ("tpp", "nomad")]
+    return cases
+
+
+def cpu_route_run(case: int, trace_kw: dict):
+    """Phase [10]'s CPU run of ``sim_cases()[case]`` on ``kv_store(mc,
+    **trace_kw)`` (one worker process, one thread): the final state and
+    timeline as numpy."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    from repro_torch.core import TieredMemSimulator, workloads
+    torch.set_num_threads(1)
+    _, mc, pc = sim_cases()[case]
+    trace = workloads.kv_store(mc, **trace_kw)
+    t0 = time.perf_counter()
+    res = TieredMemSimulator(mc=mc, pc=pc, device="cpu").run(trace)
+    return res.final_state, res.timeline, time.perf_counter() - t0
+
+
+def state_fields(state, prefix=""):
+    """(name, numpy array) of every field of a SimState.to_numpy()."""
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if dataclasses.is_dataclass(v):
+            yield from state_fields(v, prefix + f.name + ".")
+        else:
+            yield prefix + f.name, v
+
+
+def same_arrays(a, b) -> bool:
+    """Integers and flags exact; f32 (cycles) to rtol 1e-5."""
+    import numpy as np
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.dtype.kind == "f":
+        return bool(np.allclose(a, b, rtol=1e-5, atol=0.0))
+    return bool(np.array_equal(a, b))
+
+
+def alloc_scan_phase(dev, gen_seed=8):
+    """[8] alloc_scan against its plain version on the card, exactly: T = 32
+    on N = 4 (benchmark_machine), N = 6 (cxl_machine, and with its middle
+    tier empty, so interleaving skips it), L = 1 and 8, every pair of data
+    and PT policy codes, THP on and off; free and reclaimable counts drawn
+    near the watermark and near zero so that every allocation path occurs.
+    Returns (max abs err, path counts, timing)."""
+    import numpy as np
+    import torch
+    from repro_torch.core import alloc as alloc_mod
+    from repro_torch.core import config as cfg
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import pt_walk as pt_walk_mod
+
+    rng = np.random.default_rng(gen_seed)
+    T = 32
+    pairs = [(d, p) for d in (cfg.FIRST_TOUCH, cfg.INTERLEAVE)
+             for p in (cfg.PT_FOLLOW_DATA, cfg.PT_BIND_ALL, cfg.PT_BIND_HIGH)]
+    machines = [cfg.benchmark_machine(), cfg.cxl_machine(),
+                cfg.MachineConfig(n_threads=32, radix_bits=6,
+                                  tier_pages_per_node=(49152, 0, 204800))]
+    paths = dict(fast=0, slow=0, reclaim=0, failed=0)
+    worst = 0
+
+    def inputs(mc, codes, device):
+        L, N = len(codes), mc.n_nodes
+        wm = alloc_mod.watermark_pages(mc, "cpu")
+        cap = torch.tensor(mc.node_capacity())
+        near_wm = wm + torch.as_tensor(rng.integers(-3, 4, (L, N)))
+        near_zero = torch.as_tensor(rng.integers(0, 4, (L, N)))
+        free = torch.where(torch.as_tensor(rng.random((L, N)) < 0.5),
+                           near_wm, near_zero).clamp(min=0)
+        free = torch.where(cap > 0, free, 0).to(torch.int32)
+        rec = torch.where(cap > 0, torch.as_tensor(rng.integers(0, 3, (L, N))),
+                          0).to(torch.int32)
+        t = (free, rec,
+             torch.as_tensor(rng.integers(0, 64, L), dtype=torch.int32),
+             torch.as_tensor(rng.random(L) < 0.1), wm.to(torch.int32),
+             torch.tensor([d for d, _ in codes], dtype=torch.int32),
+             torch.tensor([p for _, p in codes], dtype=torch.int32),
+             torch.as_tensor(rng.random((L, T, 4)) < 0.3),
+             torch.as_tensor(rng.random((L, T)) < 0.7))
+        return [x.to(device) for x in t]
+
+    n_cases = 0
+    for mc_base in machines:
+        for thp in (False, True):
+            mc = dataclasses.replace(mc_base, page_order=6 if thp else 0)
+            kw = dict(n_threads=mc.n_threads, alloc_nodes=mc.alloc_nodes,
+                      thp=thp)
+            lane_sets = [[pair] for pair in pairs] + [
+                [pairs[(i + j) % len(pairs)] for i in range(8)]
+                for j in range(2)]
+            for codes in lane_sets:
+                args = inputs(mc, codes, "cpu")
+                want = ops.alloc_scan(*args, **kw)          # the plain version
+                got = ops.alloc_scan(*[a.to(dev) for a in args], **kw)
+                for g, w in zip(got, want):
+                    g = g.cpu()
+                    check(g.dtype == w.dtype and torch.equal(g, w),
+                          f"alloc_scan on {mc.tier_capacities} thp={thp} "
+                          f"codes {codes}: kernel != plain version")
+                    worst = max(worst, int((g.long() - w.long()).abs().max()))
+                _, slow, ok, act = want[:4]
+                from_reserve = int((args[1] - want[6]).sum())
+                paths["fast"] += int((act & ok & ~slow).sum())
+                paths["slow"] += int((act & ok & slow).sum()) - from_reserve
+                paths["reclaim"] += from_reserve
+                paths["failed"] += int((act & ~ok).sum())
+                n_cases += 1
+    check(all(v > 0 for v in paths.values()),
+          f"alloc_scan: an allocation path never occurred: {paths}")
+
+    # timing at the populate shape (L = 1, T = 32, N = 4): a populate step
+    # asks a data page of about two threads in three, no OOM latched
+    mc = cfg.benchmark_machine()
+    args = inputs(mc, [(cfg.FIRST_TOUCH, cfg.PT_FOLLOW_DATA)], "cpu")
+    args[3].fill_(False)
+    args[7] = torch.as_tensor(rng.random((1, T, 4)) < 0.02)
+    args[8] = torch.as_tensor(rng.random((1, T)) < 0.67)
+    kw = dict(n_threads=32, alloc_nodes=mc.alloc_nodes, thp=False)
+    dargs = [a.to(dev) for a in args]
+    ms = device_ms(lambda: ops.alloc_scan(*dargs, **kw))
+    floor_ms = device_ms(lambda: pt_walk_mod.empty_cuda(dev))
+    plain_ms = host_ms(lambda: ref.alloc_scan_ref(
+        *dargs, 32, mc.alloc_nodes, False), reps=3)
+    call_ms = host_ms(lambda: ops.alloc_scan(*dargs, **kw))
+    L, N = 1, mc.n_nodes
+    # bytes the scan must move, each once: its inputs (the carry, the
+    # watermarks, the two codes, the request masks) and its outputs (a
+    # node and three flags per request, a gate per thread, the new carry)
+    moved = (L * (2 * 4 * N + 4 + 1 + 2 * 4 + 4 * T + T) + 4 * N
+             + L * (T * 5 * (4 + 3) + T + 2 * 4 * N + 4 + 1))
+    timing = dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms, floor_ms=floor_ms,
+                  bound_ms=moved / HBM_BYTES_PER_S * 1e3, library_ms=None,
+                  bytes=moved)
+    log(f"[8] alloc_scan == plain version on {n_cases} cases (max abs err "
+        f"{worst}); paths: {paths}")
+    log(f"[8] alloc_scan at the populate shape (L=1 T=32 N=4): kernel "
+        f"{ms:.7f} ms (eager call {call_ms:.5f} ms), an empty kernel "
+        f"{floor_ms:.7f} ms (the floor of one launch), plain version "
+        f"{plain_ms:.3f} ms (eager, on the card), bytes bound "
+        f"{timing['bound_ms']:.9f} ms ({moved} B)")
+    return float(worst), paths, timing
+
+
+def launches_per_step(stepper, k):
+    """Device activities (kernels, copies, fills) per step over the next
+    ``k`` steps, from the profiler; 0 when it records no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        stepper.advance(k)
+        torch.cuda.synchronize()
+    return sum(e.device_type == DeviceType.CUDA for e in prof.events()) / k
+
+
+def launch_count_phase(k=16):
+    """[9]'s device activities per step, counted last, so that the
+    profiler's hooks can slow no timed run.  A fresh run of the quickstart's machine and
+    policy at [10]'s size has the same step kinds: a populate step (a
+    fault on most threads) and a run-phase step (no fault, no scan)."""
+    from repro_torch import quickstart as tq
+    from repro_torch.core import TieredMemSimulator, benchmark_machine, workloads
+    mc = benchmark_machine()
+    trace = workloads.kv_store(mc, **REDUCED)
+    p = trace.populate_steps
+    stepper = TieredMemSimulator(mc=mc, pc=tq.POLICIES[0][1]).stepper(trace)
+    stepper.advance(p // 2)
+    pop = launches_per_step(stepper, k)
+    stepper.advance(p + 100 - stepper.s)
+    run = launches_per_step(stepper, k)
+    check(pop > 0 and run > 0, "the profiler recorded no device activity")
+    log(f"[9] device activities per step (profiler, {k} steps each, counted "
+        f"after [10] on a fresh run at [10]'s size): populate {pop:.1f}, "
+        f"run phase {run:.1f}")
+
+
+def quickstart_phase():
+    """[9] the quickstart on the card at full size, held to the golden file
+    of the JAX package's outputs; returns alloc_scan's launches."""
+    import torch
+    from repro_torch import quickstart as tq
+    from repro_torch.core import (TieredMemSimulator, benchmark_machine,
+                                  fault_step_mask, trace_digest)
+    from repro_torch.kernels import ops
+
+    golden = tq.load_golden()
+    mc = benchmark_machine()
+    t0 = time.perf_counter()
+    trace = tq.quickstart_trace(mc)
+    check(trace_digest(trace) == golden["trace"]["digest"],
+          "the quickstart trace's digest differs from the golden file's")
+    fault_steps = int(fault_step_mask(trace, mc).sum())
+    check(fault_steps == golden["trace"]["fault_steps"],
+          f"fault steps {fault_steps} != golden {golden['trace']['fault_steps']}")
+    p, S = trace.populate_steps, trace.n_steps
+    log(f"[9] quickstart trace: {S} steps ({p} populate, {fault_steps} with a "
+        f"fault) x {mc.n_threads} threads, n_map {mc.n_map}; digest matches "
+        f"the golden file; trace and schedule {time.perf_counter() - t0:.1f} s")
+    launches, base = 0, None
+    for name, pc in tq.POLICIES:
+        sim = TieredMemSimulator(mc=mc, pc=pc)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stepper = sim.stepper(trace)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        ops.reset_launches()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            stepper.advance()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        counts = ops.launch_counts()
+        res = stepper.result()
+        t3 = time.perf_counter()
+        check(counts["alloc_scan"] == fault_steps,
+              f"{name}: alloc_scan launches {counts['alloc_scan']} != "
+              f"{fault_steps} steps with a fault")
+        launches += counts["alloc_scan"]
+        bad = tq.mismatches({"label": pc.label(), **tq.outputs(res, trace)},
+                            golden["policies"][name])
+        check(not bad, f"{name}: differs from the golden file: {bad[:8]}")
+        if base is None:
+            base = tq.run_phase(res, trace)[0]
+        log(f"[9] {tq.report_line(name.strip(), res, trace, base)}")
+        log(f"[9] {name.strip()}: == golden file (every summary key and the "
+            f"last and populate rows of every timeline key; integers exact, "
+            f"cycles to rtol 1e-5); launches {counts}; wall {t2 - t1:.2f} s "
+            f"for {S} steps ({S / (t2 - t1):.1f} steps/s) under "
+            f"set_sync_debug_mode('error'), set-up {t1 - t0:.2f} s, result "
+            f"{t3 - t2:.2f} s")
+    return launches
+
+
+def cpu_route_phase():
+    """[10] the card against the port's own CPU route, field for field over
+    the final state and the timeline, at a reduced size; the CPU runs go to
+    worker processes while the card runs."""
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+
+    import torch
+    from repro_torch.core import TieredMemSimulator, fault_step_mask, workloads
+    from repro_torch.kernels import ops
+
+    cases = sim_cases()
+    ctx = multiprocessing.get_context("spawn")
+    t0 = time.perf_counter()
+    with ProcessPoolExecutor(max_workers=min(len(cases), 6),
+                             mp_context=ctx) as pool:
+        futures = [pool.submit(cpu_route_run, i, REDUCED)
+                   for i in range(len(cases))]
+        for i, (name, mc, pc) in enumerate(cases):
+            trace = workloads.kv_store(mc, **REDUCED)
+            fault_steps = int(fault_step_mask(trace, mc).sum())
+            ops.reset_launches()
+            t1 = time.perf_counter()
+            stepper = TieredMemSimulator(mc=mc, pc=pc).stepper(trace)
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                stepper.advance()
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+            card = stepper.result()
+            t2 = time.perf_counter()
+            check(ops.launch_counts()["alloc_scan"] == fault_steps,
+                  f"[10] {name}: alloc_scan launches != steps with a fault")
+            state, timeline, cpu_s = futures[i].result()
+            fields = dict(state_fields(card.final_state))
+            cpu_fields = dict(state_fields(state))
+            check(fields.keys() == cpu_fields.keys(), f"[10] {name}: fields")
+            bad = [k for k in fields if not same_arrays(fields[k], cpu_fields[k])]
+            bad += [f"timeline.{k}" for k in timeline
+                    if not same_arrays(card.timeline[k], timeline[k])]
+            check(not bad, f"[10] {name}: card != CPU route on {bad}")
+            s = card.summary()
+            log(f"[10] {name}: card == CPU route on all {len(fields)} state "
+                f"fields and {len(timeline)} timeline keys; {trace.n_steps} "
+                f"steps, faults {s['faults']}, data migrations "
+                f"{s['data_migrations']}, l4 {s['l4_mig_success']}, shadows "
+                f"{s['shadow_pages']}, oom {s['oom_killed']}; card "
+                f"{t2 - t1:.2f} s, CPU {cpu_s:.2f} s (one worker thread)")
+    log(f"[10] total {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -343,44 +722,6 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # -- 6. timing ------------------------------------------------------------
-    def device_ms(calls, reps=50, rounds=7):
-        """Median device time per call: ``reps`` calls captured in one CUDA
-        graph (so host launch cost is left out), replayed ``rounds`` times
-        between CUDA events."""
-        calls()
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            calls()
-        torch.cuda.current_stream().wait_stream(side)
-        torch.cuda.synchronize()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for _ in range(reps):
-                calls()
-        graph.replay()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(rounds):
-            a = torch.cuda.Event(enable_timing=True)
-            b = torch.cuda.Event(enable_timing=True)
-            a.record()
-            graph.replay()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b) / reps)
-        return statistics.median(times)
-
-    def host_ms(calls, reps=200):
-        """Wall time per eager call, launch overhead included."""
-        calls()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            calls()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) / reps * 1e3
-
     def walk_bytes(upper, lent, vb):
         """Bytes the walk must move on these inputs, each word once: the
         upper rows and the queries, the tier of each leaf page reached and
@@ -701,7 +1042,16 @@ def main() -> int:
             f"{a['bound_ms'] / a['ms']:.3f} of 3.35 TB/s")
     log(f"[7] total wall {time.perf_counter() - t_start:.1f} s")
 
-    # -- 8. result lines ------------------------------------------------------
+    # -- 8-10. the simulator ---------------------------------------------------
+    torch.cuda.empty_cache()
+    err["alloc_scan"], _, alloc_t = alloc_scan_phase(dev)
+    launches["alloc_scan"] = quickstart_phase()
+    log(f"[9] total wall {time.perf_counter() - t_start:.1f} s")
+    cpu_route_phase()
+    launch_count_phase()
+    log(f"[10] total wall {time.perf_counter() - t_start:.1f} s")
+
+    # -- 11. result lines -----------------------------------------------------
     kernels = []
     main = attn["Qwen1.5-0.5B"]
     launches["paged_attention"] = attn_launches
@@ -709,7 +1059,9 @@ def main() -> int:
             ("pt_walk", tick, "src/repro/kernels/pt_walk.py:44"),
             ("block_copy", copy, "src/repro/kernels/block_copy.py:25"),
             ("paged_attention", main,
-             "src/repro/kernels/paged_attention.py:81")):
+             "src/repro/kernels/paged_attention.py:81"),
+            ("alloc_scan", alloc_t,
+             "src/repro/core/alloc.py:146 (lax.scan; no Pallas original)")):
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",

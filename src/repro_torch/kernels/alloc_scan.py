@@ -1,0 +1,48 @@
+"""The allocator scan on the card: launch wrapper of ``csrc/alloc_scan.cu``.
+
+No Pallas original: replaces the ``lax.scan`` of the JAX package's
+``core/alloc.py::alloc_many``.  Callers go through
+:func:`repro_torch.kernels.ops.alloc_scan`, which checks the arguments and
+takes the plain version (``ref.alloc_scan_ref``) for CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import build
+
+launches = 0    # kernel launches since the last reset (ops.reset_launches)
+
+
+def alloc_scan_cuda(node_free, node_reclaimable, interleave_ptr, oom_killed,
+                    wm, data_policy, pt_policy, need_pt, need_data,
+                    n_threads: int, alloc_mask: int, thp: bool):
+    """Launch the scan on the tensors' CUDA device (arguments checked by
+    ``ops``); returns its nine outputs, allocated here."""
+    global launches
+    L, T = need_data.shape
+    N = node_free.shape[1]
+    dev = node_free.device
+
+    def empty(shape, dtype):
+        return torch.empty(shape, dtype=dtype, device=dev)
+
+    nodes = empty((L, T, 5), torch.int32)
+    slow, ok, act = (empty((L, T, 5), torch.bool) for _ in range(3))
+    gate = empty((L, T), torch.bool)
+    free, rec = empty((L, N), torch.int32), empty((L, N), torch.int32)
+    ptr, oom = empty((L,), torch.int32), empty((L,), torch.bool)
+    lib = build.build().lib
+    with torch.cuda.device(dev):
+        err = lib.alloc_scan_launch(
+            node_free.data_ptr(), node_reclaimable.data_ptr(),
+            interleave_ptr.data_ptr(), oom_killed.data_ptr(), wm.data_ptr(),
+            data_policy.data_ptr(), pt_policy.data_ptr(), need_pt.data_ptr(),
+            need_data.data_ptr(), L, T, N, n_threads // 2, alloc_mask,
+            int(thp), nodes.data_ptr(), slow.data_ptr(), ok.data_ptr(),
+            act.data_ptr(), gate.data_ptr(), free.data_ptr(), rec.data_ptr(),
+            ptr.data_ptr(), oom.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    build.check_launch("alloc_scan", err)
+    launches += 1
+    return nodes, slow, ok, act, gate, free, rec, ptr, oom

@@ -40,6 +40,8 @@ SIGNATURES = {
                               + [_c.c_void_p],
     "paged_attention_occupancy": [_c.c_int, _c.c_int, _c.c_void_p],
     "paged_attention_capture_id": [_c.c_void_p, _c.c_void_p],
+    "alloc_scan_launch": [_c.c_void_p] * 9 + [_c.c_int] * 6
+                         + [_c.c_void_p] * 10,
 }
 
 

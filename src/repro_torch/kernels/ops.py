@@ -12,6 +12,7 @@ import math
 
 import torch
 
+from . import alloc_scan as _alloc_scan
 from . import block_copy as _block_copy
 from . import paged_attention as _paged_attention
 from . import pt_walk as _pt_walk
@@ -187,16 +188,67 @@ def paged_attention(q, k_pool, v_pool, tables, lengths):
     return out.reshape(B, H, Dh)
 
 
+MAX_ALLOC_NODES = 16      # csrc/alloc_scan.cu keeps a lane's carry in registers
+
+
+def alloc_scan(node_free, node_reclaimable, interleave_ptr, oom_killed, wm,
+               data_policy, pt_policy, need_pt, need_data, *, n_threads: int,
+               alloc_nodes, thp: bool):
+    """The allocator of one fault step, serially over the threads, for
+    ``L`` lanes at once (see ``ref.alloc_scan_ref`` for the semantics).
+
+    ``node_free``, ``node_reclaimable`` ``i32[L, N]``; ``interleave_ptr``
+    ``i32[L]``; ``oom_killed`` ``bool[L]``; ``wm`` ``i32[N]``;
+    ``data_policy``, ``pt_policy`` ``i32[L]``; ``need_pt`` ``bool[L, T,
+    4]``; ``need_data`` ``bool[L, T]``; the machine's ``n_threads``, its
+    allocatable nodes and its THP flag.  ``N`` is even (two nodes per
+    tier) and at most ``MAX_ALLOC_NODES``.  Returns ``(nodes i32[L, T, 5],
+    slow, ok, act bool[L, T, 5], gate bool[L, T], node_free',
+    node_reclaimable', interleave_ptr', oom_killed')``; the inputs are not
+    written."""
+    name = "alloc_scan"
+    tensors = (node_free, node_reclaimable, interleave_ptr, oom_killed, wm,
+               data_policy, pt_policy, need_pt, need_data)
+    dev = _same_device(name, *tensors)
+    for t in tensors:
+        _check(t.is_contiguous(), name, "needs contiguous tensors")
+    for t in (oom_killed, need_pt, need_data):
+        _check(t.dtype == torch.bool, name, f"needs bool masks, got {t.dtype}")
+    for t in (node_free, node_reclaimable, interleave_ptr, wm, data_policy,
+              pt_policy):
+        _check(t.dtype == torch.int32, name, f"needs int32, got {t.dtype}")
+    _check(need_data.dim() == 2, name, "need_data must be [L, T]")
+    L, T = need_data.shape
+    N = wm.shape[0] if wm.dim() == 1 else -1
+    _check(2 <= N <= MAX_ALLOC_NODES and N % 2 == 0, name,
+           f"wm must be [N] with N even and at most {MAX_ALLOC_NODES}")
+    _check(node_free.shape == (L, N) and node_reclaimable.shape == (L, N),
+           name, "node_free and node_reclaimable must be [L, N]")
+    for t in (interleave_ptr, oom_killed, data_policy, pt_policy):
+        _check(t.shape == (L,), name, "the per-lane carry and codes must be [L]")
+    _check(need_pt.shape == (L, T, 4), name, "need_pt must be [L, T, 4]")
+    alloc_nodes = tuple(int(a) for a in alloc_nodes)
+    _check(len(alloc_nodes) > 0 and all(0 <= a < N for a in alloc_nodes),
+           name, f"allocatable nodes {alloc_nodes} outside [0, {N})")
+    if dev.type == "cpu":
+        return ref.alloc_scan_ref(*tensors, n_threads, alloc_nodes, bool(thp))
+    mask = sum(1 << a for a in set(alloc_nodes))
+    return _alloc_scan.alloc_scan_cuda(*tensors, n_threads, mask, bool(thp))
+
+
 def launch_counts() -> dict:
     """Calls that launched each kernel since the last
-    :func:`reset_launches` (one ``paged_attention`` call is one launch;
-    ``pt_walk_rows_any`` counts as a ``pt_walk`` launch, ``block_copy_pools`` as one ``block_copy`` launch
-    whatever its number of pairs)."""
+    :func:`reset_launches` (one ``paged_attention`` or ``alloc_scan`` call
+    is one launch; ``pt_walk_rows_any`` counts as a ``pt_walk`` launch,
+    ``block_copy_pools`` as one ``block_copy`` launch whatever its number
+    of pairs)."""
     return {"pt_walk": _pt_walk.launches, "block_copy": _block_copy.launches,
-            "paged_attention": _paged_attention.launches}
+            "paged_attention": _paged_attention.launches,
+            "alloc_scan": _alloc_scan.launches}
 
 
 def reset_launches() -> None:
+    _alloc_scan.launches = 0
     _pt_walk.launches = 0
     _block_copy.launches = 0
     _paged_attention.launches = 0

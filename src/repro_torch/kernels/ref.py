@@ -193,3 +193,96 @@ def block_copy_ref(src_pool, dst_pool, ids):
     else:
         dst_pool[dst] = vals
     return dst_pool
+
+
+def alloc_scan_ref(node_free, node_reclaimable, interleave_ptr, oom_killed,
+                   wm, data_policy, pt_policy, need_pt, need_data, n_threads,
+                   alloc_nodes, thp):
+    """The allocator of one fault step, serially over the threads (the
+    body of the JAX package's ``core/alloc.py::alloc_many``): a Python loop
+    over the threads, each making its root/top/mid/leaf PT requests and
+    then its data request through ``core.alloc.alloc_one``, all lanes at
+    once.
+
+    Lanes lead every tensor: ``node_free``, ``node_reclaimable``
+    ``i32[L, N]``, ``interleave_ptr`` ``i32[L]``, ``oom_killed``
+    ``bool[L]``, ``data_policy`` / ``pt_policy`` ``i32[L]``, ``need_pt``
+    ``bool[L, T, 4]``, ``need_data`` ``bool[L, T]``; ``wm`` is ``i32[N]``.
+    Thread ``t`` is local to node pair member ``t >= n_threads // 2``;
+    interleaving rotates over ``alloc_nodes``; ``thp`` binds the leaf like
+    an upper level under BHi.  Returns ``(nodes i32[L, T, 5], slow, ok,
+    act bool[L, T, 5], gate bool[L, T], node_free', node_reclaimable',
+    interleave_ptr', oom_killed')``.
+    """
+    # imported here: core.alloc reaches this module through kernels.ops
+    from types import SimpleNamespace
+
+    from ..core import alloc
+    from ..core.config import INTERLEAVE, PT_BIND_HIGH, PT_FOLLOW_DATA
+
+    L, T = need_data.shape
+    N = node_free.shape[1]
+    dev = node_free.device
+    mc = SimpleNamespace(n_threads=n_threads, n_tiers=N // 2, n_nodes=N,
+                         alloc_nodes=tuple(alloc_nodes))
+    free, rec = node_free, node_reclaimable
+    ptr, oom = interleave_ptr, oom_killed
+    is_interleave = (data_policy == INTERLEAVE)[:, None]
+    is_bhi = pt_policy == PT_BIND_HIGH
+    advances = [is_interleave[:, 0] & (pt_policy == PT_FOLLOW_DATA)] * 4 \
+        + [is_interleave[:, 0]]
+    # each thread's first-touch order, and the interleave order of every
+    # cursor position
+    threads = torch.arange(T, dtype=torch.int32, device=dev)
+    first_touch = alloc.first_touch_prefs(threads, mc)
+    rotations = alloc.interleave_prefs(
+        torch.arange(len(mc.alloc_nodes), dtype=torch.int32, device=dev), mc)
+    dram = alloc.dram_prefs(threads, mc)
+    no_wm = torch.zeros_like(oom_killed)
+    # the levels that bind to the DRAM order (core/alloc.py::pt_prefs_for)
+    bound = [alloc.pt_bound(pt_policy, upper, thp)
+             for upper in alloc.LEVEL_IS_UPPER]
+    nodes, slows, oks, acts, gates = [], [], [], [], []
+    for t in range(T):
+        gate = ~oom                       # thread-entry OOM gate
+        for lvl in range(5):
+            dprefs = torch.where(is_interleave,
+                                 rotations[ptr.remainder(len(mc.alloc_nodes))],
+                                 first_touch[t])
+            if lvl < 4:
+                act = need_pt[:, t, lvl] & gate
+                prefs = torch.where(bound[lvl][:, None], dram[t], dprefs)
+                if alloc.LEVEL_IS_UPPER[lvl] or thp:
+                    # BHi falls back to the data policy when DRAM is
+                    # exhausted: the level's order and the data order are
+                    # tried side by side, and the fallback selected
+                    node, slow, nf, nr, ok = alloc.alloc_one(
+                        free, rec, torch.stack([prefs, dprefs]), wm,
+                        torch.stack([bound[lvl], no_wm]))
+                    use_fb = is_bhi & ~ok[0]
+                    node = torch.where(use_fb, node[1], node[0])
+                    slow = torch.where(use_fb, slow[1], slow[0])
+                    nf = torch.where(use_fb[:, None], nf[1], nf[0])
+                    nr = torch.where(use_fb[:, None], nr[1], nr[0])
+                    ok = ok[0] | (is_bhi & ok[1])
+                else:
+                    node, slow, nf, nr, ok = alloc.alloc_one(
+                        free, rec, prefs, wm, bound[lvl])
+            else:
+                act = need_data[:, t] & gate
+                node, slow, nf, nr, ok = alloc.alloc_one(free, rec, dprefs,
+                                                         wm, False)
+            do = act & ok
+            free = torch.where(do[:, None], nf, free)
+            rec = torch.where(do[:, None], nr, rec)
+            ptr = ptr + (do & advances[lvl]).to(torch.int32)
+            oom = oom | (act & ~ok)
+            nodes.append(node), slows.append(slow)
+            oks.append(ok), acts.append(act)
+        gates.append(gate)
+
+    def per_request(xs):
+        return torch.stack(xs, dim=1).reshape(L, T, 5)
+
+    return (per_request(nodes), per_request(slows), per_request(oks),
+            per_request(acts), torch.stack(gates, dim=1), free, rec, ptr, oom)

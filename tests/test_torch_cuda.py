@@ -230,3 +230,101 @@ def test_paged_attention_streams_and_graphs_keep_their_own_counters(
         torch.testing.assert_close(graph_outs[i].float(), wants[i].float(),
                                    atol=tol, rtol=tol)
     assert all(int(b.abs().sum()) == 0 for b in pa._arrivals.values())
+
+
+def _alloc_scan_inputs(gen, mc, codes):
+    """Carries near the watermark or near zero, a little reserve, random
+    requests: every allocation path occurs over a few calls."""
+    from repro_torch.core import alloc as talloc
+    L, N, T = len(codes), mc.n_nodes, mc.n_threads
+    wm = talloc.watermark_pages(mc, "cpu")
+    cap = torch.tensor(mc.node_capacity())
+    near = torch.rand((L, N), generator=gen) < 0.5
+    free = torch.where(near, torch.randint(0, 3, (L, N), generator=gen),
+                       wm + torch.randint(-3, 4, (L, N), generator=gen))
+    free = torch.where(cap > 0, free.clamp(min=0), 0).to(torch.int32)
+    rec = torch.where(cap > 0, torch.randint(0, 3, (L, N), generator=gen),
+                      0).to(torch.int32)
+    return (free, rec, torch.randint(0, 40, (L,), generator=gen,
+                                     dtype=torch.int32),
+            torch.rand(L, generator=gen) < 0.1, wm,
+            torch.tensor([d for d, _ in codes], dtype=torch.int32),
+            torch.tensor([p for _, p in codes], dtype=torch.int32),
+            torch.rand((L, T, 4), generator=gen) < 0.3,
+            torch.rand((L, T), generator=gen) < 0.7)
+
+
+@pytest.mark.cuda
+def test_alloc_scan_kernel_matches_plain_version(cuda_device):
+    """Every output of the allocator scan kernel == the plain loop, on 2-,
+    3- and 4-tier machines (one with an empty tier), THP on and off,
+    every pair of policy codes, 1 and 6 lanes."""
+    from repro_torch.core import config as cfg
+    gen = torch.Generator().manual_seed(17)
+    pairs = [(d, p) for d in (0, 1) for p in (10, 11, 12)]
+    machines = [cfg.benchmark_machine(), cfg.cxl_machine(n_threads=16),
+                cfg.MachineConfig(n_threads=8, tier_pages_per_node=(600, 0,
+                                                                    900, 2400))]
+    ops.reset_launches()
+    calls = 0
+    for mc in machines:
+        for thp in (False, True):
+            kw = dict(n_threads=mc.n_threads, alloc_nodes=mc.alloc_nodes,
+                      thp=thp)
+            for codes in [[pair] for pair in pairs] + [pairs]:
+                args = _alloc_scan_inputs(gen, mc, codes)
+                want = ops.alloc_scan(*args, **kw)
+                got = ops.alloc_scan(*[a.to(cuda_device) for a in args], **kw)
+                calls += 1
+                for g, w in zip(got, want):
+                    assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+    assert ops.launch_counts()["alloc_scan"] == calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["linux_default", "bhi_mig", "tpp",
+                                    "nomad"])
+def test_simulator_on_the_card_matches_the_cpu_route(cuda_device, policy):
+    """The per-step engine on the card (alloc_scan launched once per step
+    with a fault, no device read inside the loop) == the same run on the
+    CPU, field for field."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch import core
+    mc = core.MachineConfig(n_threads=8, va_pages=1 << 13, radix_bits=6,
+                            tier_pages_per_node=(400, 300, 2400))
+    pc = getattr(core, policy)()
+    pc = dataclasses.replace(pc, autonuma_period=32, autonuma_budget=64)
+    trace = core.workloads.kv_store(mc, 1 << 12, 256)
+    ops.reset_launches()
+    stepper = core.TieredMemSimulator(mc=mc, pc=pc).stepper(trace)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        stepper.advance()
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    card = stepper.result()
+    assert ops.launch_counts()["alloc_scan"] == \
+        int(core.fault_step_mask(trace, mc).sum())
+    cpu = core.TieredMemSimulator(mc=mc, pc=pc, device="cpu").run(trace)
+
+    def fields(state, prefix=""):
+        for f in dataclasses.fields(state):
+            v = getattr(state, f.name)
+            if dataclasses.is_dataclass(v):
+                yield from fields(v, prefix + f.name + ".")
+            else:
+                yield prefix + f.name, v
+
+    want = dict(fields(cpu.final_state))
+    for name, got in fields(card.final_state):
+        w = want[name]
+        assert got.dtype == w.dtype and got.shape == w.shape, name
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(got, w, rtol=1e-5, err_msg=name)
+        else:
+            np.testing.assert_array_equal(got, w, err_msg=name)
+    for k, w in cpu.timeline.items():
+        np.testing.assert_allclose(card.timeline[k], w, rtol=1e-5, err_msg=k)

@@ -428,6 +428,14 @@ def test_plain_versions_count_no_launches():
     table = torch.zeros(3, 2, dtype=torch.int32)
     ops.pt_walk_rows_any(table, torch.tensor([0, 2], dtype=torch.int32),
                          *map(to_torch, walk_inputs(rng, 4, 64, 16)[1:]), 1)
+    i32 = dict(dtype=torch.int32)
+    ops.alloc_scan(torch.full((1, 4), 5, **i32), torch.ones((1, 4), **i32),
+                   torch.zeros(1, **i32), torch.zeros(1, dtype=torch.bool),
+                   torch.full((4,), 2, **i32), torch.ones(1, **i32),
+                   torch.full((1,), 12, **i32),
+                   torch.ones((1, 4, 4), dtype=torch.bool),
+                   torch.ones((1, 4), dtype=torch.bool), n_threads=4,
+                   alloc_nodes=(0, 1, 2, 3), thp=False)
     assert ops.launch_counts() == {"pt_walk": 0, "block_copy": 0,
-                                   "paged_attention": 0}
+                                   "paged_attention": 0, "alloc_scan": 0}
 
