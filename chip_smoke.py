@@ -48,11 +48,15 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    plain version and ``scaled_dot_product_attention`` on K/V gathered
    beforehand, timed;
 8. ``alloc_scan``, the simulator's allocator scan, against its plain
-   version on the card, exactly: T = 32 on N = 4 and N = 6 nodes (and a
-   middle tier left empty), L = 1 and 8 lanes, every pair of data and PT
-   policy codes, THP on and off, free counts near the watermark and near
-   zero (it prints how often the fast, slow, reclaim and failing paths
-   occurred); its time at the populate shape beside an empty kernel;
+   version and the test mirror of its algorithm on the card, exactly:
+   T = 32 on N = 4 and N = 6 nodes (and a middle tier left empty), L = 1
+   and 8 lanes, every pair of data and PT policy codes, THP on and off,
+   free counts near the watermark and near zero, then the crafted cases
+   that cross each predicate inside a chunk (it prints how often the
+   fast, slow, reclaim and failing paths occurred, and how many chunks
+   were speculated and replayed); its time at the populate shape
+   (speculated) and at the replay shape (near the thresholds) beside an
+   empty kernel;
 9. the quickstart (``repro_torch.quickstart``) on the card at full size:
    ``benchmark_machine()``, the 16,384-step ``kv_store`` trace, Linux
    first-touch and Radiant BHi+Mig, held to the golden file of the JAX
@@ -60,10 +64,14 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    trace's digest first, then every summary key and the last and
    populate-phase rows of every timeline key: integers exact, cycles to
    rtol 1e-5), the step loop under ``torch.cuda.set_sync_debug_mode(
-   "error")``, ``alloc_scan`` launches == steps with a fault; wall clock
-   and steps/s per policy, and (counted last, after every timed run)
-   device activities per populate and run-phase step;
-10. the card against the port's own CPU route (worker processes), field
+   "error")``, ``alloc_scan`` launches == steps with a fault, the chunks
+   it replayed (its device count, read after the run); wall clock and
+   steps/s per policy, and (measured last, after every timed run, in
+   profiled windows of populate and run-phase steps) device activities
+   per step, the device's idle share and ``alloc_scan``'s time per
+   launch;
+10. the card against the port's own CPU route (worker processes, each
+   waited for; the script checks that it leaves no child running), field
    for field over the final state and the timeline, at footprint 2^14 and
    512 run steps: tests/test_core_oracle.py's six policies on
    ``benchmark_machine()``, ``tpp()`` and ``nomad()`` on ``cxl_machine()``;
@@ -216,12 +224,20 @@ def alloc_scan_phase(dev, gen_seed=8):
     on N = 4 (benchmark_machine), N = 6 (cxl_machine, and with its middle
     tier empty, so interleaving skips it), L = 1 and 8, every pair of data
     and PT policy codes, THP on and off; free and reclaimable counts drawn
-    near the watermark and near zero so that every allocation path occurs.
-    Returns (max abs err, path counts, timing)."""
+    near the watermark and near zero so that every allocation path occurs;
+    then the crafted cases of ``ref.alloc_scan_cases`` that cross each
+    predicate inside a chunk (T = 48 and a slot row with pads among them).
+    The chunks the kernel replays equal those of the test mirror of its
+    algorithm (``ref.alloc_scan_speculative_ref``), and both paths occur.
+    Timed at two shapes: the populate shape (L = 1, T = 32, N = 4, a slot
+    row, DRAM and NVMM far above their watermarks: speculated) and the
+    replay shape (the near-threshold draw above: replayed).
+    Returns (max abs err, path counts, timing at the populate shape)."""
     import numpy as np
     import torch
     from repro_torch.core import alloc as alloc_mod
     from repro_torch.core import config as cfg
+    from repro_torch.kernels import alloc_scan as alloc_scan_mod
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import pt_walk as pt_walk_mod
 
@@ -255,7 +271,31 @@ def alloc_scan_phase(dev, gen_seed=8):
              torch.as_tensor(rng.random((L, T)) < 0.7))
         return [x.to(device) for x in t]
 
-    n_cases = 0
+    def held(args, kw, slot_thread, what):
+        """The kernel == the plain version == the test mirror on every
+        output; returns the mirror's replayed chunks."""
+        nonlocal worst
+        want = ops.alloc_scan(*args, **kw, slot_thread=slot_thread)
+        mirror = ref.alloc_scan_speculative_ref(
+            *args, kw["n_threads"], kw["alloc_nodes"], kw["thp"], slot_thread)
+        got = ops.alloc_scan(*[a.to(dev) for a in args], **kw,
+                             slot_thread=None if slot_thread is None
+                             else slot_thread.to(dev))
+        for g, w, m in zip(got, want, mirror):
+            g = g.cpu()
+            check(g.dtype == w.dtype and torch.equal(g, w) and torch.equal(m, w),
+                  f"alloc_scan {what}: kernel != plain version != mirror")
+            worst = max(worst, int((g.long() - w.long()).abs().max()))
+        _, slow, ok, act = want[:4]
+        from_reserve = int((args[1] - want[6]).sum())
+        paths["fast"] += int((act & ok & ~slow).sum())
+        paths["slow"] += int((act & ok & slow).sum()) - from_reserve
+        paths["reclaim"] += from_reserve
+        paths["failed"] += int((act & ~ok).sum())
+        return mirror[-1]
+
+    ops.reset_launches()
+    n_cases = mirror_replays = 0
     for mc_base in machines:
         for thp in (False, True):
             mc = dataclasses.replace(mc_base, page_order=6 if thp else 0)
@@ -265,61 +305,103 @@ def alloc_scan_phase(dev, gen_seed=8):
                 [pairs[(i + j) % len(pairs)] for i in range(8)]
                 for j in range(2)]
             for codes in lane_sets:
-                args = inputs(mc, codes, "cpu")
-                want = ops.alloc_scan(*args, **kw)          # the plain version
-                got = ops.alloc_scan(*[a.to(dev) for a in args], **kw)
-                for g, w in zip(got, want):
-                    g = g.cpu()
-                    check(g.dtype == w.dtype and torch.equal(g, w),
-                          f"alloc_scan on {mc.tier_capacities} thp={thp} "
-                          f"codes {codes}: kernel != plain version")
-                    worst = max(worst, int((g.long() - w.long()).abs().max()))
-                _, slow, ok, act = want[:4]
-                from_reserve = int((args[1] - want[6]).sum())
-                paths["fast"] += int((act & ok & ~slow).sum())
-                paths["slow"] += int((act & ok & slow).sum()) - from_reserve
-                paths["reclaim"] += from_reserve
-                paths["failed"] += int((act & ~ok).sum())
+                mirror_replays += held(inputs(mc, codes, "cpu"), kw, None,
+                                       f"on {mc.tier_capacities} thp={thp} "
+                                       f"codes {codes}")
                 n_cases += 1
+    random_chunks = alloc_scan_mod.chunks
+    crossing = []
+    for case in ref.alloc_scan_cases():
+        mc = cfg.MachineConfig(**case["machine"])
+        kw = dict(n_threads=mc.n_threads, alloc_nodes=mc.alloc_nodes,
+                  thp=mc.page_order > 0)
+        n = held(case["args"], kw, case["slot_thread"], case["name"])
+        check(n == case["replays"], f"alloc_scan {case['name']}: the mirror "
+              f"replays {n} chunks, not {case['replays']}")
+        mirror_replays += n
+        crossing.append(n)
+    replayed, chunks = alloc_scan_mod.replays(), alloc_scan_mod.chunks
+    check(replayed == mirror_replays, f"alloc_scan: the kernel replayed "
+          f"{replayed} chunks, the mirror of its algorithm {mirror_replays}")
+    check(0 < replayed < chunks, f"alloc_scan: {replayed} of {chunks} chunks "
+          f"replayed: a path never occurred")
     check(all(v > 0 for v in paths.values()),
           f"alloc_scan: an allocation path never occurred: {paths}")
+    log(f"[8] alloc_scan == plain version == the test mirror of its "
+        f"algorithm on {n_cases} drawn cases and {len(crossing)} crafted ones "
+        f"(max abs err {worst}); allocation paths: {paths}; chunks: "
+        f"{chunks - replayed} speculated, {replayed} replayed of {chunks} (the "
+        f"kernel's device count == the mirror's; drawn cases "
+        f"{replayed - sum(crossing)} of {random_chunks}, crafted "
+        f"{sum(crossing)} of {chunks - random_chunks})")
 
-    # timing at the populate shape (L = 1, T = 32, N = 4): a populate step
-    # asks a data page of about two threads in three, no OOM latched
+    # timing.  The populate shape: a populate step asks a data page of
+    # about two threads in three and a leaf page of a few, from DRAM and
+    # NVMM far above their watermarks, no OOM latched, the slot row the
+    # requesting threads.  The replay shape: the near-threshold draw.
     mc = cfg.benchmark_machine()
-    args = inputs(mc, [(cfg.FIRST_TOUCH, cfg.PT_FOLLOW_DATA)], "cpu")
-    args[3].fill_(False)
-    args[7] = torch.as_tensor(rng.random((1, T, 4)) < 0.02)
-    args[8] = torch.as_tensor(rng.random((1, T)) < 0.67)
     kw = dict(n_threads=32, alloc_nodes=mc.alloc_nodes, thp=False)
-    dargs = [a.to(dev) for a in args]
-    ms = device_ms(lambda: ops.alloc_scan(*dargs, **kw))
+    cap = torch.tensor(mc.node_capacity(), dtype=torch.int32)
+    need_pt = torch.as_tensor(rng.random((1, T, 4)) < 0.02)
+    need_data = torch.as_tensor(rng.random((1, T)) < 0.67)
+    asking = torch.nonzero(need_data[0] | need_pt[0].any(1))[:, 0]
+    slots = torch.full((1, T), T, dtype=torch.int32)
+    slots[0, :len(asking)] = asking.to(torch.int32)
+    populate = [(cap * 3 // 4)[None], (cap // 100)[None],
+                torch.zeros(1, dtype=torch.int32), torch.zeros(1, dtype=torch.bool),
+                alloc_mod.watermark_pages(mc, "cpu"),
+                torch.tensor([cfg.FIRST_TOUCH], dtype=torch.int32),
+                torch.tensor([cfg.PT_FOLLOW_DATA], dtype=torch.int32),
+                need_pt, need_data]
+    replay = inputs(mc, [(cfg.FIRST_TOUCH, cfg.PT_FOLLOW_DATA)], "cpu")
+    replay[3].fill_(False)
+    timing = {}
+    for shape, args, slot in (("populate", populate, slots),
+                              ("replay", replay, None)):
+        dargs = [a.to(dev) for a in args]
+        dslot = None if slot is None else slot.to(dev)
+        ops.reset_launches()
+        ops.alloc_scan(*dargs, **kw, slot_thread=dslot)
+        timing[shape] = dict(
+            replayed=alloc_scan_mod.replays(),
+            ms=device_ms(lambda: ops.alloc_scan(*dargs, **kw,
+                                                slot_thread=dslot)),
+            call_ms=host_ms(lambda: ops.alloc_scan(*dargs, **kw,
+                                                   slot_thread=dslot)))
+    check(timing["populate"]["replayed"] == 0 and
+          timing["replay"]["replayed"] == 1,
+          f"alloc_scan timing shapes took the wrong path: {timing}")
     floor_ms = device_ms(lambda: pt_walk_mod.empty_cuda(dev))
+    dargs = [a.to(dev) for a in populate]
     plain_ms = host_ms(lambda: ref.alloc_scan_ref(
-        *dargs, 32, mc.alloc_nodes, False), reps=3)
-    call_ms = host_ms(lambda: ops.alloc_scan(*dargs, **kw))
-    L, N = 1, mc.n_nodes
+        *dargs, 32, mc.alloc_nodes, False, slots.to(dev)), reps=3)
+    L, N, G = 1, mc.n_nodes, T
     # bytes the scan must move, each once: its inputs (the carry, the
-    # watermarks, the two codes, the request masks) and its outputs (a
-    # node and three flags per request, a gate per thread, the new carry)
-    moved = (L * (2 * 4 * N + 4 + 1 + 2 * 4 + 4 * T + T) + 4 * N
+    # watermarks, the two codes, the request masks, the slot row) and its
+    # outputs (a node and three flags per request, a gate per thread, the
+    # new carry)
+    moved = (L * (2 * 4 * N + 4 + 1 + 2 * 4 + 4 * T + T + 4 * G) + 4 * N
              + L * (T * 5 * (4 + 3) + T + 2 * 4 * N + 4 + 1))
-    timing = dict(ms=ms, plain_ms=plain_ms, call_ms=call_ms, floor_ms=floor_ms,
-                  bound_ms=moved / HBM_BYTES_PER_S * 1e3, library_ms=None,
-                  bytes=moved)
-    log(f"[8] alloc_scan == plain version on {n_cases} cases (max abs err "
-        f"{worst}); paths: {paths}")
-    log(f"[8] alloc_scan at the populate shape (L=1 T=32 N=4): kernel "
-        f"{ms:.7f} ms (eager call {call_ms:.5f} ms), an empty kernel "
-        f"{floor_ms:.7f} ms (the floor of one launch), plain version "
-        f"{plain_ms:.3f} ms (eager, on the card), bytes bound "
-        f"{timing['bound_ms']:.9f} ms ({moved} B)")
-    return float(worst), paths, timing
+    pop, rep = timing["populate"], timing["replay"]
+    result = dict(ms=pop["ms"], plain_ms=plain_ms, call_ms=pop["call_ms"],
+                  floor_ms=floor_ms, bound_ms=moved / HBM_BYTES_PER_S * 1e3,
+                  library_ms=None, bytes=moved, replay_ms=rep["ms"])
+    log(f"[8] alloc_scan at the populate shape (L=1 T=32 N=4, a slot row of "
+        f"{G}, speculated): kernel {pop['ms']:.7f} ms (eager call "
+        f"{pop['call_ms']:.5f} ms); at the replay shape (free near the "
+        f"watermark or 0, replayed): kernel {rep['ms']:.7f} ms (eager call "
+        f"{rep['call_ms']:.5f} ms); an empty kernel {floor_ms:.7f} ms (the "
+        f"floor of one launch), plain version {plain_ms:.3f} ms (eager, on "
+        f"the card, populate shape), bytes bound "
+        f"{result['bound_ms']:.9f} ms ({moved} B)")
+    return float(worst), paths, result
 
 
-def launches_per_step(stepper, k):
-    """Device activities (kernels, copies, fills) per step over the next
-    ``k`` steps, from the profiler; 0 when it records no device activity."""
+def profiled_window(stepper, k):
+    """Over the next ``k`` steps, from the profiler: device activities
+    (kernels, copies, fills) per step, the device's idle share (the part of
+    the span from the window's first device activity to its last that no
+    activity covers), and alloc_scan's launches and mean ms per launch."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -327,37 +409,67 @@ def launches_per_step(stepper, k):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         stepper.advance(k)
         torch.cuda.synchronize()
-    return sum(e.device_type == DeviceType.CUDA for e in prof.events()) / k
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(events) > 0, "the profiler recorded no device activity")
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    span = max(b for _, b in spans) - spans[0][0]
+    alloc = [e.time_range.elapsed_us() for e in events
+             if "alloc_scan" in e.name]
+    return dict(per_step=len(events) / k, idle=1 - busy / span,
+                alloc_launches=len(alloc),
+                alloc_ms=sum(alloc) / len(alloc) / 1e3 if alloc else 0.0)
 
 
-def launch_count_phase(k=16):
-    """[9]'s device activities per step, counted last, so that the
-    profiler's hooks can slow no timed run.  A fresh run of the quickstart's machine and
-    policy at [10]'s size has the same step kinds: a populate step (a
-    fault on most threads) and a run-phase step (no fault, no scan)."""
+def launch_count_phase(replays, k=32):
+    """[9]'s device activities per step, idle share and alloc_scan device
+    time, measured last, so that the profiler's hooks can slow no timed run:
+    for each quickstart policy, a fresh run of its machine at [10]'s size
+    (the same step kinds: a populate step, a fault on most threads; a
+    run-phase step, no fault, no scan), a window of ``k`` populate steps
+    and one of ``k`` run-phase steps.  ``replays`` is (replayed, chunks)
+    of each policy's timed run."""
     from repro_torch import quickstart as tq
     from repro_torch.core import TieredMemSimulator, benchmark_machine, workloads
     mc = benchmark_machine()
     trace = workloads.kv_store(mc, **REDUCED)
     p = trace.populate_steps
-    stepper = TieredMemSimulator(mc=mc, pc=tq.POLICIES[0][1]).stepper(trace)
-    stepper.advance(p // 2)
-    pop = launches_per_step(stepper, k)
-    stepper.advance(p + 100 - stepper.s)
-    run = launches_per_step(stepper, k)
-    check(pop > 0 and run > 0, "the profiler recorded no device activity")
-    log(f"[9] device activities per step (profiler, {k} steps each, counted "
-        f"after [10] on a fresh run at [10]'s size): populate {pop:.1f}, "
-        f"run phase {run:.1f}")
+    for name, pc in tq.POLICIES:
+        stepper = TieredMemSimulator(mc=mc, pc=pc).stepper(trace)
+        stepper.advance(p // 2)
+        pop = profiled_window(stepper, k)
+        stepper.advance(p + 100 - stepper.s)
+        run = profiled_window(stepper, k)
+        check(pop["alloc_launches"] == k,
+              f"{name}: {pop['alloc_launches']} alloc_scan launches in {k} "
+              f"populate steps")
+        replayed, chunks = replays[name]
+        log(f"[9] {name.strip()} (profiler, {k} steps a window, after [10], "
+            f"a fresh run at [10]'s size): device activities per step: "
+            f"populate {pop['per_step']:.1f}, run phase {run['per_step']:.1f}; "
+            f"device idle share: populate {pop['idle']:.4f}, run phase "
+            f"{run['idle']:.4f}; alloc_scan {pop['alloc_ms']:.7f} ms per "
+            f"launch in the populate window, so about "
+            f"{pop['alloc_ms'] * chunks / 1e3:.4f} s over the {chunks} launches "
+            f"of the timed run, which replayed {replayed} of its {chunks} "
+            f"chunks")
 
 
 def quickstart_phase():
     """[9] the quickstart on the card at full size, held to the golden file
-    of the JAX package's outputs; returns alloc_scan's launches."""
+    of the JAX package's outputs; returns alloc_scan's launches and, per
+    policy, (chunks replayed, chunks) of its timed run (the device count
+    read once, after the run)."""
     import torch
     from repro_torch import quickstart as tq
     from repro_torch.core import (TieredMemSimulator, benchmark_machine,
                                   fault_step_mask, trace_digest)
+    from repro_torch.kernels import alloc_scan as alloc_scan_mod
     from repro_torch.kernels import ops
 
     golden = tq.load_golden()
@@ -373,7 +485,7 @@ def quickstart_phase():
     log(f"[9] quickstart trace: {S} steps ({p} populate, {fault_steps} with a "
         f"fault) x {mc.n_threads} threads, n_map {mc.n_map}; digest matches "
         f"the golden file; trace and schedule {time.perf_counter() - t0:.1f} s")
-    launches, base = 0, None
+    launches, base, replays = 0, None, {}
     for name, pc in tq.POLICIES:
         sim = TieredMemSimulator(mc=mc, pc=pc)
         torch.cuda.synchronize()
@@ -390,6 +502,7 @@ def quickstart_phase():
         torch.cuda.synchronize()
         t2 = time.perf_counter()
         counts = ops.launch_counts()
+        replays[name] = (alloc_scan_mod.replays(), alloc_scan_mod.chunks)
         res = stepper.result()
         t3 = time.perf_counter()
         check(counts["alloc_scan"] == fault_steps,
@@ -407,58 +520,111 @@ def quickstart_phase():
             f"cycles to rtol 1e-5); launches {counts}; wall {t2 - t1:.2f} s "
             f"for {S} steps ({S / (t2 - t1):.1f} steps/s) under "
             f"set_sync_debug_mode('error'), set-up {t1 - t0:.2f} s, result "
-            f"{t3 - t2:.2f} s")
-    return launches
+            f"{t3 - t2:.2f} s; alloc_scan replayed {replays[name][0]} of "
+            f"{replays[name][1]} chunks")
+    return launches, replays
 
 
-def cpu_route_phase():
+def cpu_route_worker(case: int, out: str) -> int:
+    """Phase [10]'s worker (``chip_smoke.py --cpu-route-worker CASE OUT``):
+    pickles ``cpu_route_run(CASE, REDUCED)`` into the file OUT."""
+    import pickle
+    result = cpu_route_run(case, REDUCED)
+    with open(out, "wb") as f:
+        pickle.dump(result, f)
+    return 0
+
+
+def live_children() -> list[str]:
+    """The command lines of this process's children that are still alive
+    (from /proc)."""
+    import os
+    me, found = str(os.getpid()), []
+    for stat in Path("/proc").glob("[0-9]*/stat"):
+        try:
+            fields = stat.read_text().rsplit(")", 1)[1].split()
+            if fields[1] == me and fields[0] != "Z":
+                found.append((stat.parent / "cmdline").read_bytes()
+                             .replace(b"\0", b" ").decode().strip())
+        except (OSError, IndexError):
+            pass                                # the process ended meanwhile
+    return found
+
+
+def cpu_route_phase(width=6):
     """[10] the card against the port's own CPU route, field for field over
     the final state and the timeline, at a reduced size; the CPU runs go to
-    worker processes while the card runs."""
-    import multiprocessing
-    from concurrent.futures import ProcessPoolExecutor
+    worker processes (this script with ``--cpu-route-worker``, ``width`` at
+    a time) while the card runs.  Every worker is waited for, and killed
+    first if the phase fails, so none outlives it."""
+    import os
+    import pickle
+    import tempfile
 
     import torch
     from repro_torch.core import TieredMemSimulator, fault_step_mask, workloads
     from repro_torch.kernels import ops
 
     cases = sim_cases()
-    ctx = multiprocessing.get_context("spawn")
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")     # the CPU route only
+    procs: list[subprocess.Popen] = []
+
+    def top_up(tmp):
+        while (len(procs) < len(cases)
+               and sum(p.poll() is None for p in procs) < width):
+            procs.append(subprocess.Popen(
+                [sys.executable, str(Path(__file__).resolve()),
+                 "--cpu-route-worker", str(len(procs)),
+                 str(Path(tmp) / f"{len(procs)}.pkl")], env=env))
+
     t0 = time.perf_counter()
-    with ProcessPoolExecutor(max_workers=min(len(cases), 6),
-                             mp_context=ctx) as pool:
-        futures = [pool.submit(cpu_route_run, i, REDUCED)
-                   for i in range(len(cases))]
-        for i, (name, mc, pc) in enumerate(cases):
-            trace = workloads.kv_store(mc, **REDUCED)
-            fault_steps = int(fault_step_mask(trace, mc).sum())
-            ops.reset_launches()
-            t1 = time.perf_counter()
-            stepper = TieredMemSimulator(mc=mc, pc=pc).stepper(trace)
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                stepper.advance()
-            finally:
-                torch.cuda.set_sync_debug_mode(0)
-            card = stepper.result()
-            t2 = time.perf_counter()
-            check(ops.launch_counts()["alloc_scan"] == fault_steps,
-                  f"[10] {name}: alloc_scan launches != steps with a fault")
-            state, timeline, cpu_s = futures[i].result()
-            fields = dict(state_fields(card.final_state))
-            cpu_fields = dict(state_fields(state))
-            check(fields.keys() == cpu_fields.keys(), f"[10] {name}: fields")
-            bad = [k for k in fields if not same_arrays(fields[k], cpu_fields[k])]
-            bad += [f"timeline.{k}" for k in timeline
-                    if not same_arrays(card.timeline[k], timeline[k])]
-            check(not bad, f"[10] {name}: card != CPU route on {bad}")
-            s = card.summary()
-            log(f"[10] {name}: card == CPU route on all {len(fields)} state "
-                f"fields and {len(timeline)} timeline keys; {trace.n_steps} "
-                f"steps, faults {s['faults']}, data migrations "
-                f"{s['data_migrations']}, l4 {s['l4_mig_success']}, shadows "
-                f"{s['shadow_pages']}, oom {s['oom_killed']}; card "
-                f"{t2 - t1:.2f} s, CPU {cpu_s:.2f} s (one worker thread)")
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            top_up(tmp)
+            for i, (name, mc, pc) in enumerate(cases):
+                trace = workloads.kv_store(mc, **REDUCED)
+                fault_steps = int(fault_step_mask(trace, mc).sum())
+                ops.reset_launches()
+                t1 = time.perf_counter()
+                stepper = TieredMemSimulator(mc=mc, pc=pc).stepper(trace)
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    stepper.advance()
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+                card = stepper.result()
+                t2 = time.perf_counter()
+                check(ops.launch_counts()["alloc_scan"] == fault_steps,
+                      f"[10] {name}: alloc_scan launches != steps with a fault")
+                top_up(tmp)
+                rc = procs[i].wait()
+                top_up(tmp)
+                check(rc == 0, f"[10] {name}: the CPU route's worker "
+                      f"exited with {rc}")
+                with open(Path(tmp) / f"{i}.pkl", "rb") as f:
+                    state, timeline, cpu_s = pickle.load(f)
+                fields = dict(state_fields(card.final_state))
+                cpu_fields = dict(state_fields(state))
+                check(fields.keys() == cpu_fields.keys(),
+                      f"[10] {name}: fields")
+                bad = [k for k in fields
+                       if not same_arrays(fields[k], cpu_fields[k])]
+                bad += [f"timeline.{k}" for k in timeline
+                        if not same_arrays(card.timeline[k], timeline[k])]
+                check(not bad, f"[10] {name}: card != CPU route on {bad}")
+                s = card.summary()
+                log(f"[10] {name}: card == CPU route on all {len(fields)} "
+                    f"state fields and {len(timeline)} timeline keys; "
+                    f"{trace.n_steps} steps, faults {s['faults']}, data "
+                    f"migrations {s['data_migrations']}, l4 "
+                    f"{s['l4_mig_success']}, shadows {s['shadow_pages']}, oom "
+                    f"{s['oom_killed']}; card {t2 - t1:.2f} s, CPU "
+                    f"{cpu_s:.2f} s (one worker thread)")
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
     log(f"[10] total {time.perf_counter() - t0:.1f} s")
 
 
@@ -1045,11 +1211,13 @@ def main() -> int:
     # -- 8-10. the simulator ---------------------------------------------------
     torch.cuda.empty_cache()
     err["alloc_scan"], _, alloc_t = alloc_scan_phase(dev)
-    launches["alloc_scan"] = quickstart_phase()
+    launches["alloc_scan"], replays = quickstart_phase()
     log(f"[9] total wall {time.perf_counter() - t_start:.1f} s")
     cpu_route_phase()
-    launch_count_phase()
+    launch_count_phase(replays)
     log(f"[10] total wall {time.perf_counter() - t_start:.1f} s")
+    left = live_children()
+    check(not left, f"processes this script started are still running: {left}")
 
     # -- 11. result lines -----------------------------------------------------
     kernels = []
@@ -1061,7 +1229,8 @@ def main() -> int:
             ("paged_attention", main,
              "src/repro/kernels/paged_attention.py:81"),
             ("alloc_scan", alloc_t,
-             "src/repro/core/alloc.py:146 (lax.scan; no Pallas original)")):
+             "src/repro/core/alloc.py:201 (alloc_many's lax.scan body; no "
+             "Pallas original)")):
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",
@@ -1078,4 +1247,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--cpu-route-worker"]:
+        sys.exit(cpu_route_worker(int(sys.argv[2]), sys.argv[3]))
     sys.exit(main())

@@ -177,28 +177,21 @@ def alloc_many(node_free, node_reclaimable, interleave_ptr, oom_killed, wm,
     the allocating threads.  A thread without requests is the identity on
     the carry, so it equals the full scan over the threads with the
     requests of threads outside ``slot_thread`` dropped, and the outputs
-    of those threads reset (-1 / False), which is how it runs here: the
-    scan is always the kernel's full-depth one.  Pad slots are routed to a
-    sentinel row that is sliced off.
+    of those threads reset (-1 / False), which is how it runs here:
+    ``ops.alloc_scan`` takes the slot row, and either way the step is one
+    launch on the card.
     """
     dev = node_free.device
     T = need_data.shape[0]
-    has_slot = None
     if slot_thread is not None:
-        has_slot = torch.zeros(T + 1, dtype=torch.bool, device=dev).index_fill_(
-            0, slot_thread.long(), True)[:T]
-        need_pt = need_pt & has_slot[:, None]
-        need_data = need_data & has_slot
+        slot_thread = slot_thread.to(I32).reshape(1, -1)
     nodes, slow, ok, act, gate, free, rec, ptr, oom = ops.alloc_scan(
         node_free.reshape(1, -1), node_reclaimable.reshape(1, -1),
         interleave_ptr.reshape(1), oom_killed.reshape(1), wm,
         _code(data_policy, dev), _code(pt_policy, dev),
         need_pt.reshape(1, T, 4).contiguous(),
         need_data.reshape(1, T).contiguous(), n_threads=mc.n_threads,
-        alloc_nodes=mc.alloc_nodes, thp=mc.page_order > 0)
-    nodes, slow, ok, act, gate = nodes[0], slow[0], ok[0], act[0], gate[0]
-    if has_slot is not None:
-        keep = has_slot[:, None]
-        nodes = torch.where(keep, nodes, -1)
-        slow, ok = slow & keep, ok & keep
-    return nodes, slow, ok, act, gate, free[0], rec[0], ptr[0], oom[0]
+        alloc_nodes=mc.alloc_nodes, thp=mc.page_order > 0,
+        slot_thread=slot_thread)
+    return (nodes[0], slow[0], ok[0], act[0], gate[0], free[0], rec[0],
+            ptr[0], oom[0])

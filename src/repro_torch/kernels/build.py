@@ -40,8 +40,8 @@ SIGNATURES = {
                               + [_c.c_void_p],
     "paged_attention_occupancy": [_c.c_int, _c.c_int, _c.c_void_p],
     "paged_attention_capture_id": [_c.c_void_p, _c.c_void_p],
-    "alloc_scan_launch": [_c.c_void_p] * 9 + [_c.c_int] * 6
-                         + [_c.c_void_p] * 10,
+    "alloc_scan_launch": [_c.c_void_p] * 10 + [_c.c_int] * 7
+                         + [_c.c_void_p] * 11,
 }
 
 

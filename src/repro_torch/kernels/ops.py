@@ -188,28 +188,34 @@ def paged_attention(q, k_pool, v_pool, tables, lengths):
     return out.reshape(B, H, Dh)
 
 
-MAX_ALLOC_NODES = 16      # csrc/alloc_scan.cu keeps a lane's carry in registers
+MAX_ALLOC_NODES = 16      # csrc/alloc_scan.cu: node i's counts in warp lane i
 
 
 def alloc_scan(node_free, node_reclaimable, interleave_ptr, oom_killed, wm,
                data_policy, pt_policy, need_pt, need_data, *, n_threads: int,
-               alloc_nodes, thp: bool):
+               alloc_nodes, thp: bool, slot_thread=None):
     """The allocator of one fault step, serially over the threads, for
-    ``L`` lanes at once (see ``ref.alloc_scan_ref`` for the semantics).
+    ``L`` runs at once (see ``ref.alloc_scan_ref`` for the semantics).
 
     ``node_free``, ``node_reclaimable`` ``i32[L, N]``; ``interleave_ptr``
     ``i32[L]``; ``oom_killed`` ``bool[L]``; ``wm`` ``i32[N]``;
     ``data_policy``, ``pt_policy`` ``i32[L]``; ``need_pt`` ``bool[L, T,
     4]``; ``need_data`` ``bool[L, T]``; the machine's ``n_threads``, its
-    allocatable nodes and its THP flag.  ``N`` is even (two nodes per
-    tier) and at most ``MAX_ALLOC_NODES``.  Returns ``(nodes i32[L, T, 5],
-    slow, ok, act bool[L, T, 5], gate bool[L, T], node_free',
-    node_reclaimable', interleave_ptr', oom_killed')``; the inputs are not
-    written."""
+    allocatable nodes (ascending, as ``MachineConfig.alloc_nodes``) and its
+    THP flag; ``slot_thread`` (``i32[L, G]`` or None) each run's slot row,
+    the reference's compacted scan (a thread outside it requests nothing
+    and reports node -1, slow and ok False; an entry outside ``[0, T)`` is
+    a pad).  ``N`` is even (two nodes per tier) and at most
+    ``MAX_ALLOC_NODES``.  Returns ``(nodes i32[L, T, 5], slow, ok, act
+    bool[L, T, 5], gate bool[L, T], node_free', node_reclaimable',
+    interleave_ptr', oom_killed')``; the inputs are not written.  On the
+    card the kernel also counts the chunks it replayed
+    (``alloc_scan.replays()``)."""
     name = "alloc_scan"
     tensors = (node_free, node_reclaimable, interleave_ptr, oom_killed, wm,
                data_policy, pt_policy, need_pt, need_data)
-    dev = _same_device(name, *tensors)
+    dev = _same_device(name, *tensors,
+                       *(() if slot_thread is None else (slot_thread,)))
     for t in tensors:
         _check(t.is_contiguous(), name, "needs contiguous tensors")
     for t in (oom_killed, need_pt, need_data):
@@ -227,13 +233,20 @@ def alloc_scan(node_free, node_reclaimable, interleave_ptr, oom_killed, wm,
     for t in (interleave_ptr, oom_killed, data_policy, pt_policy):
         _check(t.shape == (L,), name, "the per-lane carry and codes must be [L]")
     _check(need_pt.shape == (L, T, 4), name, "need_pt must be [L, T, 4]")
+    if slot_thread is not None:
+        _check(slot_thread.dtype == torch.int32 and slot_thread.dim() == 2
+               and slot_thread.shape[0] == L and slot_thread.is_contiguous(),
+               name, "slot_thread must be a contiguous i32[L, G]")
     alloc_nodes = tuple(int(a) for a in alloc_nodes)
-    _check(len(alloc_nodes) > 0 and all(0 <= a < N for a in alloc_nodes),
-           name, f"allocatable nodes {alloc_nodes} outside [0, {N})")
+    _check(len(alloc_nodes) > 0 and all(0 <= a < N for a in alloc_nodes)
+           and alloc_nodes == tuple(sorted(set(alloc_nodes))), name,
+           f"allocatable nodes {alloc_nodes} must be ascending in [0, {N})")
     if dev.type == "cpu":
-        return ref.alloc_scan_ref(*tensors, n_threads, alloc_nodes, bool(thp))
-    mask = sum(1 << a for a in set(alloc_nodes))
-    return _alloc_scan.alloc_scan_cuda(*tensors, n_threads, mask, bool(thp))
+        return ref.alloc_scan_ref(*tensors, n_threads, alloc_nodes, bool(thp),
+                                  slot_thread)
+    mask = sum(1 << a for a in alloc_nodes)
+    return _alloc_scan.alloc_scan_cuda(*tensors, slot_thread, n_threads, mask,
+                                       bool(thp))
 
 
 def launch_counts() -> dict:
@@ -248,7 +261,9 @@ def launch_counts() -> dict:
 
 
 def reset_launches() -> None:
-    _alloc_scan.launches = 0
+    """Set every launch count to 0, and the allocator kernel's device count
+    of replayed chunks."""
+    _alloc_scan.reset()
     _pt_walk.launches = 0
     _block_copy.launches = 0
     _paged_attention.launches = 0

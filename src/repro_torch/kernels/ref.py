@@ -195,9 +195,18 @@ def block_copy_ref(src_pool, dst_pool, ids):
     return dst_pool
 
 
+def slot_rows(slot_thread, T):
+    """``bool[L, T]``: the threads named in each run's slot row
+    ``slot_thread i32[L, G]``; an entry outside ``[0, T)`` is a pad."""
+    s = slot_thread.long()
+    s = torch.where((s >= 0) & (s < T), s, T)
+    return torch.zeros((s.shape[0], T + 1), dtype=torch.bool,
+                       device=s.device).scatter_(1, s, True)[:, :T]
+
+
 def alloc_scan_ref(node_free, node_reclaimable, interleave_ptr, oom_killed,
                    wm, data_policy, pt_policy, need_pt, need_data, n_threads,
-                   alloc_nodes, thp):
+                   alloc_nodes, thp, slot_thread=None):
     """The allocator of one fault step, serially over the threads (the
     body of the JAX package's ``core/alloc.py::alloc_many``): a Python loop
     over the threads, each making its root/top/mid/leaf PT requests and
@@ -210,9 +219,12 @@ def alloc_scan_ref(node_free, node_reclaimable, interleave_ptr, oom_killed,
     ``bool[L, T, 4]``, ``need_data`` ``bool[L, T]``; ``wm`` is ``i32[N]``.
     Thread ``t`` is local to node pair member ``t >= n_threads // 2``;
     interleaving rotates over ``alloc_nodes``; ``thp`` binds the leaf like
-    an upper level under BHi.  Returns ``(nodes i32[L, T, 5], slow, ok,
-    act bool[L, T, 5], gate bool[L, T], node_free', node_reclaimable',
-    interleave_ptr', oom_killed')``.
+    an upper level under BHi.  ``slot_thread`` (``i32[L, G]`` or None)
+    is the reference's compacted scan: a thread outside its run's slot row
+    (:func:`slot_rows`) requests nothing and reports node -1, slow and ok
+    False.  Returns ``(nodes i32[L, T, 5], slow, ok, act bool[L, T, 5],
+    gate bool[L, T], node_free', node_reclaimable', interleave_ptr',
+    oom_killed')``.
     """
     # imported here: core.alloc reaches this module through kernels.ops
     from types import SimpleNamespace
@@ -225,6 +237,10 @@ def alloc_scan_ref(node_free, node_reclaimable, interleave_ptr, oom_killed,
     dev = node_free.device
     mc = SimpleNamespace(n_threads=n_threads, n_tiers=N // 2, n_nodes=N,
                          alloc_nodes=tuple(alloc_nodes))
+    if slot_thread is not None:
+        in_row = slot_rows(slot_thread, T)
+        need_pt = need_pt & in_row[..., None]
+        need_data = need_data & in_row
     free, rec = node_free, node_reclaimable
     ptr, oom = interleave_ptr, oom_killed
     is_interleave = (data_policy == INTERLEAVE)[:, None]
@@ -284,5 +300,303 @@ def alloc_scan_ref(node_free, node_reclaimable, interleave_ptr, oom_killed,
     def per_request(xs):
         return torch.stack(xs, dim=1).reshape(L, T, 5)
 
-    return (per_request(nodes), per_request(slows), per_request(oks),
-            per_request(acts), torch.stack(gates, dim=1), free, rec, ptr, oom)
+    nodes, slows, oks = per_request(nodes), per_request(slows), per_request(oks)
+    if slot_thread is not None:
+        keep = in_row[..., None]
+        nodes = torch.where(keep, nodes, -1)
+        slows, oks = slows & keep, oks & keep
+    return (nodes, slows, oks, per_request(acts), torch.stack(gates, dim=1),
+            free, rec, ptr, oom)
+
+
+# -- the allocator scan's two-pass algorithm, for the tests -------------------
+
+WARP = 32      # csrc/alloc_scan.cu: the threads of a chunk, one per warp lane
+
+
+def _int32(x: int) -> int:
+    """``x`` wrapped into int32, as the kernel's and PyTorch's adds wrap."""
+    return (x + (1 << 31)) % (1 << 32) - (1 << 31)
+
+
+def _lowest(x: int) -> int:
+    return (x & -x).bit_length() - 1 if x else -1
+
+
+def _first_touch_first(x: int, local: int) -> int:
+    """The first node of bitmask ``x`` in a first-touch order: fastest
+    tier first, the thread's own node of each pair first."""
+    tiers = (x | (x >> 1)) & 0x55555555
+    if not tiers:
+        return -1
+    p = _lowest(tiers)
+    return p + local if x >> (p + local) & 1 else p + 1 - local
+
+
+def _rotation_first(x: int, a_start: int) -> int:
+    """The first node of ``x`` in the interleave order starting at
+    allocatable node ``a_start``: the nodes from it up, then the rest."""
+    return _lowest((x & ~((1 << a_start) - 1)) or x)
+
+
+def _pick(fast, slow, reserve, rotate, local, a_start):
+    """``core.alloc.alloc_one`` over node bitmasks: ``(node, ok, slow,
+    from_reclaim)``."""
+    for mask, flags in ((fast, (True, False, False)),
+                        (slow, (True, True, False)),
+                        (reserve, (True, True, True))):
+        n = (_rotation_first(mask, a_start) if rotate
+             else _first_touch_first(mask, local))
+        if n >= 0:
+            return (n, *flags)
+    return (-1, False, False, False)
+
+
+def _request(run, preds, r, local, a_start):
+    """Request ``r`` (0-3 the PT levels, 4 the data page) of a thread on
+    pair member ``local``, from the predicate bitmasks ``preds``."""
+    above, free, reserve = preds
+    s = run["alloc_mask"] if run["interleave"] else run["all"]
+    data = _pick(above & s, free & s, reserve & s, run["interleave"], local,
+                 a_start)
+    if r == 4:
+        return data
+    upper = r < 3 or run["thp"]
+    if not (run["bind_all"] or (run["bhi"] and upper)):
+        return data
+    # bound to the DRAM order (nodes 0 and 1), the watermark ignored
+    dram = _pick(free & 3, free & 3, reserve & 3, False, local, 0)
+    return data if (not dram[1] and run["bhi"] and upper) else dram
+
+
+def _preds(free, rec, wm):
+    """The node bitmasks of free > wm, free > 0 and reclaimable > 0 (the
+    kernel's three ballots)."""
+    def bits(xs):
+        return sum(1 << i for i, x in enumerate(xs) if x)
+    return (bits(f > w for f, w in zip(free, wm)), bits(f > 0 for f in free),
+            bits(r > 0 for r in rec))
+
+
+def alloc_scan_speculative_ref(node_free, node_reclaimable, interleave_ptr,
+                               oom_killed, wm, data_policy, pt_policy,
+                               need_pt, need_data, n_threads, alloc_nodes,
+                               thp, slot_thread=None):
+    """The algorithm of ``csrc/alloc_scan.cu``, in plain PyTorch and Python
+    over the kernel's values, for the tests (no wrapper runs it).
+
+    Each run takes its threads in chunks of :data:`WARP`, and a chunk in
+    passes.  A pass speculates every request from its start on from the
+    predicates at that point (free > watermark, free > 0, reclaimable > 0
+    per node): the requests that find a page, then the OOM gates (the
+    first failing thread), the commits, each request's cursor (an
+    exclusive prefix of advancing commits) and only then each pick.  It
+    verifies them by finding the first request at which a node's
+    decrements of one kind reach the count that makes one of its
+    predicates fall, keeps the requests up to it, and the next pass starts
+    after it.  Same arguments and outputs as :func:`alloc_scan_ref`, plus
+    the number of chunks that took more than one pass (replayed).
+    """
+    from ..core.config import (INTERLEAVE, PT_BIND_ALL, PT_BIND_HIGH,
+                               PT_FOLLOW_DATA)
+
+    L, T = need_data.shape
+    N = node_free.shape[1]
+    need = torch.cat([need_pt, need_data[..., None]], dim=-1)
+    in_row = (slot_rows(slot_thread, T) if slot_thread is not None
+              else torch.ones((L, T), dtype=torch.bool))
+    need = need & in_row[..., None]
+    alloc = sorted({int(a) for a in alloc_nodes})
+    wm = wm.tolist()
+    never = 1 << 20
+    nodes = torch.full((L, T, 5), -1, dtype=torch.int32)
+    slow, ok, act = (torch.zeros((L, T, 5), dtype=torch.bool)
+                     for _ in range(3))
+    gate = torch.zeros((L, T), dtype=torch.bool)
+    free_out, rec_out = node_free.clone(), node_reclaimable.clone()
+    ptr_out, oom_out = interleave_ptr.clone(), oom_killed.clone()
+    replayed = 0
+    for l in range(L):
+        free, rec = node_free[l].tolist(), node_reclaimable[l].tolist()
+        ptr, oom = int(interleave_ptr[l]), bool(oom_killed[l])
+        pt, interleave = int(pt_policy[l]), int(data_policy[l]) == INTERLEAVE
+        run = dict(all=(1 << N) - 1, alloc_mask=sum(1 << a for a in alloc),
+                   interleave=interleave, bhi=pt == PT_BIND_HIGH,
+                   bind_all=pt == PT_BIND_ALL, thp=bool(thp))
+        advancing = torch.tensor([interleave and (r == 4 or pt == PT_FOLLOW_DATA)
+                                  for r in range(5)])
+        for t0 in range(0, T, WARP):
+            span = min(T - t0, WARP)
+            lanes = torch.arange(span)[:, None]
+            reqs = torch.arange(5)[None, :]
+            k0, r0, g0, passes = 0, 0, not oom, 0
+            while k0 < span:
+                passes += 1
+                region = (lanes > k0) | ((lanes == k0) & (reqs >= r0))
+                live = need[l, t0:t0 + span] & region
+                # speculate from the predicates at the pass's start
+                p = _preds(free, rec, wm)
+                okb = torch.tensor([_request(run, p, r, 0, alloc[0])[1]
+                                    for r in range(5)])
+                fails = (live & ~okb).any(dim=1) & ((lanes[:, 0] != k0) | g0)
+                first_fail = int(fails.int().argmax()) if fails.any() else WARP
+                g = torch.where(lanes[:, 0] == k0, torch.tensor(g0),
+                                ~torch.tensor(oom) & (lanes[:, 0] <= first_fail))
+                acts = live & g[:, None]
+                commit = acts & okb
+                n_adv = (commit & advancing).sum(dim=1)
+                before = torch.cumsum(n_adv, 0) - n_adv       # exclusive prefix
+                picks = []
+                for k in range(span):
+                    cursor = _int32(ptr + int(before[k]))
+                    row = []
+                    for r in range(5):
+                        row.append(_request(run, p, r,
+                                            int(t0 + k >= n_threads // 2),
+                                            alloc[cursor % len(alloc)]))
+                        if commit[k, r] and advancing[r]:
+                            cursor = _int32(cursor + 1)
+                    picks.append(row)
+                picked = torch.tensor([[q[0] for q in row] for row in picks])
+                from_rec = torch.tensor([[q[3] for q in row] for row in picks])
+                # verify: the first request at which a node's decrements of
+                # one kind reach the count that makes a predicate fall
+                falls = ([min(f - w if f > w else never, f if f > 0 else never)
+                          for f, w in zip(free, wm)],
+                         [r if r > 0 else never for r in rec])
+                fall_at = torch.full((span,), 5)
+                for n in sorted(set(picked[commit].tolist())):
+                    for kind, of_kind in enumerate(
+                            (commit & (picked == n) & ~from_rec,
+                             commit & (picked == n) & from_rec)):
+                        c = of_kind.sum(dim=1)
+                        below = torch.cumsum(c, 0) - c
+                        d = falls[kind][n]
+                        for k in torch.nonzero((below < d) & (d <= below + c))[:, 0]:
+                            r = int(torch.nonzero(of_kind[k])[d - int(below[k]) - 1])
+                            fall_at[k] = min(int(fall_at[k]), r)
+                kept = region
+                next_k, next_r = span, 0
+                if (fall_at < 5).any():
+                    kf = int(torch.nonzero(fall_at < 5)[0])
+                    rf = int(fall_at[kf])
+                    kept = region & ((lanes < kf) | ((lanes == kf) & (reqs <= rf)))
+                    next_k, next_r = (kf, rf + 1) if rf < 4 else (kf + 1, 0)
+                # keep the requests up to the first fall
+                taken = commit & kept
+                for n, is_rec in zip(picked[taken].tolist(),
+                                     from_rec[taken].tolist()):
+                    if is_rec:
+                        rec[n] = _int32(rec[n] - 1)
+                    else:
+                        free[n] = _int32(free[n] - 1)
+                ptr = _int32(ptr + int((taken & advancing).sum()))
+                oom = oom or bool((acts & ~okb & kept).any())
+                out = slice(t0, t0 + span)
+                nodes[l, out] = torch.where(kept, picked.to(torch.int32),
+                                            nodes[l, out])
+                slow[l, out] = torch.where(kept, torch.tensor(
+                    [[q[2] for q in row] for row in picks]), slow[l, out])
+                ok[l, out] = torch.where(kept, okb, ok[l, out])
+                act[l, out] = torch.where(kept, acts, act[l, out])
+                gate[l, out] = torch.where(kept[:, 0], g, gate[l, out])
+                g0 = bool(g[next_k]) if next_r > 0 else not oom
+                k0, r0 = next_k, next_r
+            replayed += passes > 1
+        free_out[l], rec_out[l] = torch.tensor(free), torch.tensor(rec)
+        ptr_out[l], oom_out[l] = ptr, oom
+    keep = in_row[..., None]
+    nodes = torch.where(keep, nodes, -1)
+    return (nodes, slow & keep, ok & keep, act, gate, free_out, rec_out,
+            ptr_out, oom_out, replayed)
+
+
+def alloc_scan_cases():
+    """Crafted one-run inputs of ``ops.alloc_scan`` for the tests and
+    ``chip_smoke.py`` [8]: most cross a predicate inside one chunk (the
+    kernel then replays it), a few are built to be speculated.  Each is a
+    dict of ``name``, ``machine`` (``MachineConfig`` keyword arguments),
+    ``args`` (the nine tensors of one run, on the CPU), ``slot_thread``
+    (``i32[1, G]`` or None) and ``replays``, the chunks the kernel replays.
+    """
+    import numpy as np
+
+    from ..core import alloc
+    from ..core.config import MachineConfig
+
+    m2 = dict(n_threads=32, tier_pages_per_node=(600, 2400))  # wm 12, 48
+    m3 = dict(n_threads=32, tier_pages_per_node=(600, 0, 2400))
+    far = [20000, 20000, 100000, 100000]
+
+    def requests(T, data=(), pt=()):
+        """need_pt [T, 4], need_data [T] from thread lists (``pt`` holds
+        (level, threads) pairs)."""
+        need_pt, need_data = np.zeros((T, 4), bool), np.zeros(T, bool)
+        need_data[list(data)] = True
+        for lvl, threads in pt:
+            need_pt[list(threads), lvl] = True
+        return need_pt, need_data
+
+    every = range(32)
+    table = [
+        # (name, machine, (data, pt) codes, free, reclaimable, requests,
+        #  extra, replays)
+        ("populate step far from every threshold", m2, (0, 10), far,
+         [6, 6, 24, 24], requests(32, [t for t in every if t % 3 != 2],
+                                  [(3, (0, 5))]), {}, 0),
+        ("DRAM falls to its watermark", m2, (0, 10), [17, 17, 1000, 1000],
+         [2] * 4, requests(32, every), {}, 1),
+        ("DRAM falls to 0 free (bind-all)", m2, (0, 11), [3, 3, 1000, 1000],
+         [100, 100, 0, 0], requests(32, pt=[(3, every)]), {}, 1),
+        ("the reserve falls to 0 (bind-all)", m2, (0, 11), [0, 0, 1000, 1000],
+         [4, 4, 0, 0], requests(32, pt=[(3, range(6))]), {}, 1),
+        ("a failing request latches OOM mid-chunk", m2, (0, 11),
+         [1, 1, 1000, 1000], [1, 0, 0, 0],
+         requests(32, every, [(3, every)]), {}, 1),
+        ("OOM latched mid-chunk, no threshold crossed", m2, (0, 11),
+         [0, 0, 1000, 1000], [0] * 4, requests(32, range(16), [(3, (7,))]),
+         {}, 0),
+        ("interleave wraps over alloc_nodes past an empty tier", m3, (1, 10),
+         [15, 15, 0, 0, 51, 1000], [1, 1, 0, 0, 1, 1],
+         requests(32, every, [(3, range(0, 32, 4))]), dict(ptr=3), 1),
+        ("interleave far from every threshold, the int32 cursor wrapping",
+         m3, (1, 10), [1000, 1000, 0, 0, 5000, 5000], [1, 1, 0, 0, 1, 1],
+         requests(32, every, [(3, range(0, 32, 4))]),
+         dict(ptr=(1 << 31) - 20), 0),
+        ("BHi falls back to the data order", m2, (0, 12), [2, 2, 1000, 1000],
+         [0] * 4, requests(32, pt=[(2, every)]), {}, 1),
+        ("BHi with no DRAM page: every upper page falls back", m2, (0, 12),
+         [0, 0, 1000, 1000], [0] * 4,
+         requests(32, range(8), [(0, (0,)), (1, (0, 16)), (2, range(0, 32, 3))]),
+         {}, 0),
+        ("THP binds the leaf to DRAM", dict(m2, page_order=9), (0, 12),
+         [3, 3, 1000, 1000], [1, 1, 0, 0], requests(32, pt=[(3, every)]),
+         {}, 1),
+        ("T = 48: the watermark crossed in the second chunk",
+         dict(m2, n_threads=48), (0, 10), [42, 32, 1000, 1000], [0] * 4,
+         requests(48, range(48)), {}, 1),
+        ("a slot row with pads, crossing", m2, (0, 10), [14, 14, 1000, 1000],
+         [0] * 4, requests(32, every),
+         dict(slots=[1, 4, 5, 9, 20, 21, 30]), 1),
+        ("a slot row with pads, interleave far from every threshold", m2,
+         (1, 10), far, [0] * 4, requests(32, every, [(3, every)]),
+         dict(slots=[0, 2, 3, 8, 17, 31]), 0),
+    ]
+    cases = []
+    for name, machine, (d, p), free, rec, (need_pt, need_data), extra, n in table:
+        mc = MachineConfig(**machine)
+        T = mc.n_threads
+        args = (torch.tensor([free], dtype=torch.int32),
+                torch.tensor([rec], dtype=torch.int32),
+                torch.tensor([extra.get("ptr", 0)], dtype=torch.int32),
+                torch.tensor([False]), alloc.watermark_pages(mc, "cpu"),
+                torch.tensor([d], dtype=torch.int32),
+                torch.tensor([p], dtype=torch.int32),
+                torch.as_tensor(need_pt[None]), torch.as_tensor(need_data[None]))
+        slots = None
+        if "slots" in extra:
+            row = extra["slots"] + [T] * (16 - len(extra["slots"]))
+            slots = torch.tensor([row], dtype=torch.int32)
+        cases.append(dict(name=name, machine=machine, args=args,
+                          slot_thread=slots, replays=n))
+    return cases

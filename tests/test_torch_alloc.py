@@ -1,7 +1,10 @@
 """The port's allocator (``core/alloc.py``, and ``ops.alloc_scan``'s plain
 version on the CPU) held to the JAX package's ``core/alloc.py`` on the same
 random carries: every output exact, in the full-depth scan and in the scan
-compacted to the allocating threads (``slot_thread``)."""
+compacted to the allocating threads (``slot_thread``); and the test mirror
+of the CUDA kernel's algorithm (``ref.alloc_scan_speculative_ref``) held to
+the plain loop, on drawn inputs and on crafted cases that cross each
+predicate inside a chunk."""
 import functools
 
 import jax
@@ -9,12 +12,13 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings, strategies as st
 
 import repro.core as jc
 from repro.core import alloc as jalloc
 import repro_torch.core as tc
 from repro_torch.core import alloc as talloc
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 MACHINES = {
     "2-tier": lambda m: m.MachineConfig(n_threads=16),
@@ -191,9 +195,193 @@ def test_alloc_scan_rejects_bad_arguments():
         args[i] = bad
         with pytest.raises(ValueError, match="alloc_scan"):
             ops.alloc_scan(*args, **kw)
-    with pytest.raises(ValueError, match="allocatable"):
-        ops.alloc_scan(*good, **{**kw, "alloc_nodes": (0, 4)})
+    for nodes in ((0, 4), (2, 0), (0, 0)):
+        with pytest.raises(ValueError, match="allocatable"):
+            ops.alloc_scan(*good, **{**kw, "alloc_nodes": nodes})
+    with pytest.raises(ValueError, match="slot_thread"):
+        ops.alloc_scan(*good, **kw,
+                       slot_thread=torch.zeros((2, 4), dtype=torch.int32))
     with pytest.raises(ValueError, match="at most"):
         wide = [torch.zeros((1, 18), dtype=torch.int32)] * 2
         ops.alloc_scan(*wide, *good[2:4], torch.zeros((18,), dtype=torch.int32),
                        *good[5:], **kw)
+
+
+# -- the kernel's two-pass algorithm (csrc/alloc_scan.cu), mirrored --------
+
+SPEC_MACHINES = [dict(n_threads=32, tier_pages_per_node=(600, 2400)),
+                 dict(n_threads=48, tier_pages_per_node=(600, 0, 2400)),
+                 dict(n_threads=40, tier_pages_per_node=(600, 900, 0, 2400),
+                      page_order=9),
+                 dict(n_threads=16, tier_pages_per_node=(600, 2400),
+                      page_order=9),
+                 dict(n_threads=64, tier_pages_per_node=(600, 2400))]
+
+
+def _kw(mc):
+    return dict(n_threads=mc.n_threads, alloc_nodes=mc.alloc_nodes,
+                thp=mc.page_order > 0)
+
+
+def _mirror(args, mc, slot_thread):
+    """The test mirror of the kernel on ``args``: its nine outputs and the
+    chunks it replayed."""
+    out = ref.alloc_scan_speculative_ref(*args, mc.n_threads, mc.alloc_nodes,
+                                         mc.page_order > 0, slot_thread)
+    return out[:9], out[9]
+
+
+def _assert_same(got, want, what):
+    for name, g, w in zip(NAMES, got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), f"{what}: {name}"
+
+
+@settings(max_examples=40, deadline=None, derandomize=True)
+@given(st.data())
+def test_alloc_scan_speculative_mirror_matches_plain_loop(data):
+    """The mirror of the kernel's algorithm (speculate a chunk of 32
+    threads from its entry predicates, verify, replay where a predicate
+    fell) == the plain loop on every output, on drawn machines (T = 16 to
+    64, so one or two chunks), carries near the thresholds or far from
+    them, codes, request masks and slot rows with pads."""
+    mc = tc.MachineConfig(**data.draw(st.sampled_from(SPEC_MACHINES)))
+    L = data.draw(st.integers(1, 3))
+    T, N = mc.n_threads, mc.n_nodes
+    cap = np.asarray(mc.node_capacity())
+    wm = talloc.watermark_pages(mc, "cpu").numpy()
+    kind = data.draw(st.lists(st.sampled_from(["zero", "watermark", "far"]),
+                              min_size=L * N, max_size=L * N))
+    offset = np.asarray(data.draw(st.lists(st.integers(-3, 12), min_size=L * N,
+                                            max_size=L * N))).reshape(L, N)
+    base = np.where(np.asarray(kind).reshape(L, N) == "zero", 0,
+                    np.where(np.asarray(kind).reshape(L, N) == "watermark",
+                             wm, 5000))
+    free = np.where(cap > 0, np.maximum(base + offset, 0), 0).astype(np.int32)
+    rec = np.where(cap > 0, np.asarray(data.draw(st.lists(
+        st.integers(0, 3), min_size=L * N, max_size=L * N))).reshape(L, N),
+        0).astype(np.int32)
+    codes = data.draw(st.lists(st.tuples(st.sampled_from(DATA),
+                                         st.sampled_from(PT)),
+                               min_size=L, max_size=L))
+    ptr = data.draw(st.lists(st.integers(-(1 << 31), (1 << 31) - 1)
+                             | st.integers(-3, 40), min_size=L, max_size=L))
+    oom = data.draw(st.lists(st.booleans(), min_size=L, max_size=L))
+    p_pt, p_data = data.draw(st.floats(0, 0.5)), data.draw(st.floats(0, 1))
+    rng = np.random.default_rng(data.draw(st.integers(0, 1 << 30)))
+    args = (torch.as_tensor(free), torch.as_tensor(rec),
+            torch.tensor(ptr, dtype=torch.int32), torch.tensor(oom),
+            torch.as_tensor(wm), torch.tensor([d for d, _ in codes],
+                                              dtype=torch.int32),
+            torch.tensor([p for _, p in codes], dtype=torch.int32),
+            torch.as_tensor(rng.random((L, T, 4)) < p_pt),
+            torch.as_tensor(rng.random((L, T)) < p_data))
+    slot_thread = None
+    if data.draw(st.booleans()):
+        G = data.draw(st.integers(1, T))
+        rows = np.full((L, G), T, np.int32)
+        for lane in range(L):
+            k = int(rng.integers(0, G + 1))
+            rows[lane, :k] = np.sort(rng.choice(T, k, replace=False))
+        slot_thread = torch.as_tensor(rows)
+    want = ops.alloc_scan(*args, **_kw(mc), slot_thread=slot_thread)
+    got, _ = _mirror(args, mc, slot_thread)
+    _assert_same(got, want, "mirror")
+
+
+def _jax_alloc_many(machine):
+    jm = jc.MachineConfig(**machine)
+    return jm, jax.jit(functools.partial(jalloc.alloc_many, mc=jm))
+
+
+@pytest.mark.parametrize("case", ref.alloc_scan_cases(),
+                         ids=lambda c: c["name"])
+def test_alloc_scan_crossing_cases(case):
+    """Each crafted case (a node falling to its watermark, to 0 free, its
+    reserve to 0, a failing request latching OOM mid-chunk, an interleave
+    wrap past an empty tier, BHi's fallback, THP, two chunks at T = 48, a
+    slot row with pads, and some built to be speculated): the mirror of
+    the kernel == the plain loop == JAX's ``alloc_many`` (compacted where
+    the case has a slot row), and the mirror replays the chunks the case
+    says."""
+    mc = tc.MachineConfig(**case["machine"])
+    args, slot_thread = case["args"], case["slot_thread"]
+    want = ops.alloc_scan(*args, **_kw(mc), slot_thread=slot_thread)
+    got, replayed = _mirror(args, mc, slot_thread)
+    _assert_same(got, want, "mirror")
+    assert replayed == case["replays"]
+    jm, jax_alloc_many = _jax_alloc_many(case["machine"])
+    j = jax_alloc_many(*(jnp.asarray(a[0].numpy()) for a in args[:4]),
+                       jnp.asarray(args[4].numpy()), int(args[5][0]),
+                       int(args[6][0]), need_pt=jnp.asarray(args[7][0].numpy()),
+                       need_data=jnp.asarray(args[8][0].numpy()),
+                       slot_thread=None if slot_thread is None
+                       else jnp.asarray(slot_thread[0].numpy()))
+    for name, w, g in zip(NAMES, j, want):
+        np.testing.assert_array_equal(np.asarray(w), g[0].numpy(),
+                                      err_msg=f"JAX: {name}")
+
+
+def test_alloc_scan_crossing_cases_take_both_paths():
+    """Over the crafted cases both paths occur: chunks speculated and
+    chunks replayed, with and without a slot row, and every allocation
+    outcome (fast, slow, from the reserve, failed, gated)."""
+    spec = replayed = 0
+    seen = dict.fromkeys(("fast", "slow", "reserve", "failed", "gated"), 0)
+    for case in ref.alloc_scan_cases():
+        mc = tc.MachineConfig(**case["machine"])
+        out, n = _mirror(case["args"], mc, case["slot_thread"])
+        chunks = -(-mc.n_threads // ref.WARP)
+        spec += chunks - n
+        replayed += n
+        _, slow, ok, act, gate, _, rec = out[:7]
+        seen["reserve"] += int((case["args"][1] - rec).sum())
+        seen["fast"] += int((act & ok & ~slow).sum())
+        seen["slow"] += int((act & ok & slow).sum())
+        seen["failed"] += int((act & ~ok).sum())
+        seen["gated"] += int((~gate).sum())
+    assert spec > 0 and replayed > 0
+    assert all(v > 0 for v in seen.values()), seen
+
+
+@pytest.mark.parametrize("machine", sorted(MACHINES))
+def test_alloc_scan_slot_thread_matches_jax_compacted(machine):
+    """``ops.alloc_scan``'s ``slot_thread`` over L runs at once == JAX's
+    ``alloc_many`` in its compacted mode, run by run (``jax.jit``), and
+    == the mirror of the kernel; requests of threads outside a slot row
+    are dropped."""
+    rng = np.random.default_rng(11 + len(machine))
+    jm, tm = MACHINES[machine](jc), MACHINES[machine](tc)
+    T, L = jm.n_threads, 4
+    jax_alloc_many = jax.jit(functools.partial(jalloc.alloc_many, mc=jm))
+    wm = jalloc.watermark_pages(jm)
+    carries = [_carry(rng, jm) for _ in range(L)]
+    rows = [_slots(rng.random(T) < 0.6, T) for _ in range(L)]
+    slot_thread = np.full((L, max(len(r) for r in rows)), T, np.int32)
+    for lane, row in enumerate(rows):
+        slot_thread[lane, :len(row)] = row
+    # requests everywhere: those of threads outside the row are dropped
+    need_pt = rng.random((L, T, 4)) < 0.4
+    need_data = rng.random((L, T)) < 0.9
+    codes = [(DATA[i % 2], PT[i % 3]) for i in range(L)]
+    args = (torch.as_tensor(np.stack([c[0] for c in carries])),
+            torch.as_tensor(np.stack([c[1] for c in carries])),
+            torch.tensor([c[2] for c in carries], dtype=torch.int32),
+            torch.tensor([c[3] for c in carries]),
+            torch.as_tensor(np.array(wm)),
+            torch.tensor([d for d, _ in codes], dtype=torch.int32),
+            torch.tensor([p for _, p in codes], dtype=torch.int32),
+            torch.as_tensor(need_pt), torch.as_tensor(need_data))
+    got = ops.alloc_scan(*args, **_kw(tm),
+                         slot_thread=torch.as_tensor(slot_thread))
+    mirror, _ = _mirror(args, tm, torch.as_tensor(slot_thread))
+    _assert_same(mirror, got, "mirror")
+    for lane in range(L):
+        want = jax_alloc_many(
+            jnp.asarray(carries[lane][0]), jnp.asarray(carries[lane][1]),
+            jnp.int32(carries[lane][2]), jnp.asarray(carries[lane][3]), wm,
+            *codes[lane], need_pt=jnp.asarray(need_pt[lane]),
+            need_data=jnp.asarray(need_data[lane]),
+            slot_thread=jnp.asarray(slot_thread[lane]))
+        for name, w, g in zip(NAMES, want, got):
+            np.testing.assert_array_equal(np.asarray(w), g[lane].numpy(),
+                                          err_msg=f"run {lane}: {name}")

@@ -258,26 +258,56 @@ def _alloc_scan_inputs(gen, mc, codes):
 def test_alloc_scan_kernel_matches_plain_version(cuda_device):
     """Every output of the allocator scan kernel == the plain loop, on 2-,
     3- and 4-tier machines (one with an empty tier), THP on and off,
-    every pair of policy codes, 1 and 6 lanes."""
+    every pair of policy codes, 1 and 6 runs, T = 32 and 48, with and
+    without a slot row; then on the crafted cases that cross each
+    predicate inside a chunk.  The chunks the kernel replays == those the
+    test mirror of its algorithm replays, and both paths occur."""
     from repro_torch.core import config as cfg
+    from repro_torch.kernels import alloc_scan
     gen = torch.Generator().manual_seed(17)
     pairs = [(d, p) for d in (0, 1) for p in (10, 11, 12)]
     machines = [cfg.benchmark_machine(), cfg.cxl_machine(n_threads=16),
                 cfg.MachineConfig(n_threads=8, tier_pages_per_node=(600, 0,
-                                                                    900, 2400))]
+                                                                    900, 2400)),
+                cfg.MachineConfig(n_threads=48)]
     ops.reset_launches()
-    calls = 0
+    calls = mirror_replays = 0
+
+    def run(args, kw, slot_thread):
+        nonlocal calls, mirror_replays
+        want = ops.alloc_scan(*args, **kw, slot_thread=slot_thread)
+        mirror = ref.alloc_scan_speculative_ref(
+            *args, kw["n_threads"], kw["alloc_nodes"], kw["thp"], slot_thread)
+        got = ops.alloc_scan(*[a.to(cuda_device) for a in args], **kw,
+                             slot_thread=None if slot_thread is None
+                             else slot_thread.to(cuda_device))
+        calls += 1
+        mirror_replays += mirror[-1]
+        for g, w, m in zip(got, want, mirror):
+            assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+            assert torch.equal(m, w)
+        return mirror[-1]
+
     for mc in machines:
         for thp in (False, True):
             kw = dict(n_threads=mc.n_threads, alloc_nodes=mc.alloc_nodes,
                       thp=thp)
             for codes in [[pair] for pair in pairs] + [pairs]:
                 args = _alloc_scan_inputs(gen, mc, codes)
-                want = ops.alloc_scan(*args, **kw)
-                got = ops.alloc_scan(*[a.to(cuda_device) for a in args], **kw)
-                calls += 1
-                for g, w in zip(got, want):
-                    assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+                T = mc.n_threads
+                slots = torch.full((len(codes), T // 2), T, dtype=torch.int32)
+                slots[:, :T // 4] = torch.arange(0, T, 4, dtype=torch.int32)
+                run(args, kw, None)
+                run(args, kw, slots)
+    random_replays = alloc_scan.replays()
+    assert random_replays == mirror_replays
+    for case in ref.alloc_scan_cases():
+        mc = cfg.MachineConfig(**case["machine"])
+        kw = dict(n_threads=mc.n_threads, alloc_nodes=mc.alloc_nodes,
+                  thp=mc.page_order > 0)
+        assert run(case["args"], kw, case["slot_thread"]) == case["replays"]
+    assert alloc_scan.replays() == mirror_replays
+    assert 0 < mirror_replays < alloc_scan.chunks
     assert ops.launch_counts()["alloc_scan"] == calls
 
 
