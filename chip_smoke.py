@@ -1,6 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's tiered paged-KV server, its paged decode
-attention and its tiered-memory simulator on one NVIDIA GPU.
+attention and its tiered-memory simulator (the time-blocked engine, and
+the per-step engine and the sequential fault path beside it) on one
+NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -9,7 +11,9 @@ Run from the repository root with no arguments:
 Phases (any failure exits non-zero; no phase is caught and passed over):
 
 1. torch / CUDA versions and the card's name and power limit;
-2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed);
+2. build the CUDA kernels from ``src/repro_torch/kernels/csrc`` (timed),
+   and check that the SASS of ``fast_window.cu`` holds no FFMA (its f32
+   chain is separate roundings, as the reference's);
 3. hold each kernel against its plain PyTorch version on the card, exactly,
    at the serving path's shapes and at the shapes of tests/test_kernels.py:
    the walk (``pt_walk``, and ``pt_walk_rows_any``, the tick's gathered
@@ -56,25 +60,46 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    fast, slow, reclaim and failing paths occurred, and how many chunks
    were speculated and replayed); its time at the populate shape
    (speculated) and at the replay shape (near the thresholds) beside an
-   empty kernel;
-9. the quickstart (``repro_torch.quickstart``) on the card at full size:
-   ``benchmark_machine()``, the 16,384-step ``kv_store`` trace, Linux
-   first-touch and Radiant BHi+Mig, held to the golden file of the JAX
-   package's outputs (``src/repro_torch/core/golden/quickstart.json``; the
-   trace's digest first, then every summary key and the last and
-   populate-phase rows of every timeline key: integers exact, cycles to
-   rtol 1e-5), the step loop under ``torch.cuda.set_sync_debug_mode(
-   "error")``, ``alloc_scan`` launches == steps with a fault, the chunks
-   it replayed (its device count, read after the run); wall clock and
-   steps/s per policy, and (measured last, after every timed run, in
-   profiled windows of populate and run-phase steps) device activities
-   per step, the device's idle share and ``alloc_scan``'s time per
-   launch;
-10. the card against the port's own CPU route (worker processes, each
+   empty kernel; then ``fast_window`` (N1), the fast window's inner scan,
+   against its plain version, exactly (every output, and the caches and
+   accumulators it writes back), on drawn segments of 1 to 128 rows,
+   T = 4 and 32, L = 1 and 3, ``benchmark_machine()`` and
+   ``cxl_machine()`` with THP off and on, inactive rows and OOM-killed
+   states, and its time at a quickstart segment's shape beside an empty
+   kernel;
+9. the quickstart (``repro_torch.quickstart``) on the card at full size
+   under the default (blocked) engine: ``benchmark_machine()``, the
+   16,384-step ``kv_store`` trace, Linux first-touch and Radiant BHi+Mig,
+   held to the golden file of the JAX package's outputs
+   (``src/repro_torch/core/golden/quickstart.json``; the trace's digest
+   first, then every summary key and the last and populate-phase rows of
+   every timeline key: integers exact, cycles to rtol 1e-5), the loop
+   under ``torch.cuda.set_sync_debug_mode("error")``, ``alloc_scan``
+   launches == steps with a fault, ``fast_window`` launches == the fast
+   segments of the window plan, whose counts (fast, full, hoist, split)
+   it prints, the chunks ``alloc_scan`` replayed (its device count, read
+   after the run); wall clock and steps/s per policy, populate and run
+   phase apart, and (measured last, after every timed run, in profiled
+   windows at [10]'s size: one populate window and four run-phase windows
+   of the blocked engine) device activities per step, the device's idle
+   share and the kernels' times per launch;
+10. per case, the card's blocked run against its per-step run
+   (``debug=True``: every state field bitwise, the timeline's integer keys
+   exact, its f32 keys bitwise or else to rtol 1e-6, and which held is
+   printed) and against the port's own CPU route (worker processes, each
    waited for; the script checks that it leaves no child running), field
-   for field over the final state and the timeline, at footprint 2^14 and
+   for field over the final state and the timeline, at footprint 2^13 and
    512 run steps: tests/test_core_oracle.py's six policies on
    ``benchmark_machine()``, ``tpp()`` and ``nomad()`` on ``cxl_machine()``;
+   then the sequential fault path against the batched one on a small case
+   (footprint 2^10, 64 run steps);
+[steady] the steady-state trace of benchmarks/steady_state.py under Linux
+   first-touch and BHi+Mig at ``autonuma_period`` 512: the blocked and the
+   per-step engine's wall clock and steps/s, the two held equal as in
+   [10], and over the run phase of a third blocked run (profiler; its
+   populate windows run first, unprofiled) device activities per step,
+   the device's idle share and ``fast_window``'s device time per launch
+   beside an empty kernel and its bytes bound;
 11. print the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -170,7 +195,7 @@ ORACLE_POLICIES = [
     dict(data_policy=1, pt_policy=10, mig=False, autonuma=True,
          autonuma_period=16, autonuma_budget=32, autonuma_exchange=False),
 ]
-REDUCED = dict(footprint=1 << 14, run_steps=512)     # phase [10]'s trace
+REDUCED = dict(footprint=1 << 13, run_steps=512)     # phase [10]'s trace
 
 
 def sim_cases():
@@ -397,18 +422,148 @@ def alloc_scan_phase(dev, gen_seed=8):
     return float(worst), paths, result
 
 
-def profiled_window(stepper, k):
-    """Over the next ``k`` steps, from the profiler: device activities
-    (kernels, copies, fills) per step, the device's idle share (the part of
-    the span from the window's first device activity to its last that no
-    activity covers), and alloc_scan's launches and mean ms per launch."""
+def fast_window_bytes(mc, L, R, T) -> int:
+    """Bytes one ``fast_window`` launch must move, each once: its inputs
+    (granule, four flags, four terms per row and thread), the caches (tag
+    and lru) and the four accumulators read and written back, the per-row
+    accumulators and counts written."""
+    entries = (mc.l1_tlb_sets * mc.l1_tlb_ways + mc.stlb_sets * mc.stlb_ways
+               + mc.pde_pwc_entries + mc.pdpte_pwc_entries)
+    return (L * R * T * (4 + 4 + 16) + 2 * 2 * 4 * entries * L * T
+            + 2 * 4 * L * T * 4 + 2 * L * R * 4 * T * 4)
+
+
+def fast_window_phase(dev, seed=0):
+    """[8] fast_window (N1), the fast window's inner scan, against its plain
+    version on the card, exactly: every output and the caches and
+    accumulators it updates in place; drawn segments of 1, 7, 64 and 128
+    rows at T = 4 and 32, one and three runs (L), on the cache geometry of
+    ``benchmark_machine()`` and ``cxl_machine()`` with THP off and on,
+    inactive rows throughout and an OOM-killed state (every row inactive)
+    on each machine.  Then timed at a quickstart run-phase segment's shape
+    (L = 1, 64 rows, T = 32, ``benchmark_machine()``) beside an empty
+    kernel, the plain version (eager, on the card) and the byte bound.
+    Returns (max abs err, timing)."""
+    import torch
+    from repro_torch.core import config as cfg
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import pt_walk as pt_walk_mod
+
+    def clone(args, device):
+        m, flags, terms, caches, acc, kw = args
+        return (m.to(device), flags.to(device), terms.to(device),
+                [(t.to(device).clone(), r.to(device).clone())
+                 for t, r in caches], [a.to(device).clone() for a in acc], kw)
+
+    machines = [(f"{fn}(thp={thp})", getattr(cfg, fn)(thp=thp))
+                for fn in ("benchmark_machine", "cxl_machine")
+                for thp in (False, True)]
+    worst, n_cases = 0.0, 0
+    ops.reset_launches()
+    for what, mc in machines:
+        shapes = [(R, T, 3 if R in (7, 128) else 1, False)
+                  for R in (1, 7, 64, 128) for T in (4, 32)]
+        for R, T, L, oom in shapes + [(64, 32, 1, True)]:
+            args = ref.fast_window_inputs(mc, L, R, T, seed + n_cases, oom=oom)
+            want_args, got_args = clone(args, "cpu"), clone(args, dev)
+            want = ops.fast_window(*want_args[:5], **want_args[5])
+            got = ops.fast_window(*got_args[:5], **got_args[5])
+            n_cases += 1
+            label = f"fast_window {what} L={L} R={R} T={T} oom={oom}"
+            pairs = list(zip(got, want))
+            pairs += [(g, w) for gp, wp in zip(got_args[3], want_args[3])
+                      for g, w in zip(gp, wp)]
+            pairs += list(zip(got_args[4], want_args[4]))
+            for g, w in pairs:
+                g = g.cpu()
+                check(g.dtype == w.dtype and torch.equal(g, w),
+                      f"{label}: kernel != plain version")
+                worst = max(worst, float((g.double() - w.double()).abs().max()))
+            if oom:
+                check(int(got[1].abs().sum()) == 0, f"{label}: counted rows")
+    check(ops.launch_counts()["fast_window"] == n_cases,
+          "fast_window: launches != cases")
+    log(f"[8] fast_window == plain version on {n_cases} drawn cases "
+        f"(segments of 1 to 128 rows, T = 4 and 32, L = 1 and 3, "
+        f"benchmark_machine() and cxl_machine() with THP off and on, "
+        f"inactive rows, OOM-killed states): every output, cache and "
+        f"accumulator exact (max abs err {worst})")
+
+    mc = cfg.benchmark_machine()
+    L, R, T = 1, 64, 32
+    m, flags, terms, caches, acc, kw = ref.fast_window_inputs(
+        mc, L, R, T, seed=99, device=dev)
+
+    def kernel():
+        ops.fast_window(m, flags, terms, caches, acc, **kw)
+
+    def plain():
+        ref.fast_window_ref(m, flags, terms, caches, acc, **kw)
+
+    cache_bytes = sum(t.numel() + r.numel() for t, r in caches) * 4
+    moved = fast_window_bytes(mc, L, R, T)
+    result = dict(ms=device_ms(kernel), call_ms=host_ms(kernel),
+                  floor_ms=device_ms(lambda: pt_walk_mod.empty_cuda(dev)),
+                  plain_ms=host_ms(plain, reps=3),
+                  bound_ms=moved / HBM_BYTES_PER_S * 1e3, library_ms=None,
+                  bytes=moved)
+    # the same launch at 1 and 128 rows: the caches' load and write-back
+    # against the rows' serial chain
+    by_rows = {}
+    for rows in (1, 128):
+        a = ref.fast_window_inputs(mc, L, rows, T, seed=99, device=dev)
+        by_rows[rows] = device_ms(lambda: ops.fast_window(*a[:5], **a[5]))
+    per_row = (by_rows[128] - by_rows[1]) / 127
+    log(f"[8] fast_window at a quickstart segment's shape (L=1, R=64, T=32, "
+        f"benchmark_machine(), {cache_bytes} B of caches): kernel "
+        f"{result['ms']:.7f} ms (eager call {result['call_ms']:.5f} ms), an "
+        f"empty kernel {result['floor_ms']:.7f} ms (the floor of one "
+        f"launch), plain version {result['plain_ms']:.3f} ms (eager, on the "
+        f"card), bytes bound {result['bound_ms']:.9f} ms ({moved} B); at 1 "
+        f"row {by_rows[1]:.7f} ms, at 128 rows {by_rows[128]:.7f} ms, so "
+        f"{per_row * 1e3:.4f} us a row")
+    return worst, result
+
+
+class sync_error:
+    """``torch.cuda.set_sync_debug_mode("error")`` inside the block: a
+    device read there raises."""
+
+    def __enter__(self):
+        import torch
+        torch.cuda.set_sync_debug_mode("error")
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def steps_done(runner) -> int:
+    """Steps a runner (blocked or per-step) has run."""
+    return getattr(runner, "stepper", runner).s
+
+
+def profiled_window(runner, k):
+    """Over the runner's next ``k`` windows (blocked) or steps (per-step),
+    from the profiler: device activities (kernels, copies, fills) per
+    step, the device's idle share (the part of the span from the window's
+    first device activity to its last that no activity covers), and, of
+    alloc_scan and fast_window, the launches (the wrappers' counts: the
+    profiler may drop an event) and the mean ms of the launches that the
+    profiler recorded, and how many it recorded (``<name>_recorded``)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import ops
     torch.cuda.synchronize()
+    s0 = steps_done(runner)
+    ops.reset_launches()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        stepper.advance(k)
+        runner.advance(k)
         torch.cuda.synchronize()
+    launched = ops.launch_counts()
+    steps = steps_done(runner) - s0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(len(events) > 0, "the profiler recorded no device activity")
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
@@ -419,20 +574,22 @@ def profiled_window(stepper, k):
         hi = max(hi, b)
     busy += hi - lo
     span = max(b for _, b in spans) - spans[0][0]
-    alloc = [e.time_range.elapsed_us() for e in events
-             if "alloc_scan" in e.name]
-    return dict(per_step=len(events) / k, idle=1 - busy / span,
-                alloc_launches=len(alloc),
-                alloc_ms=sum(alloc) / len(alloc) / 1e3 if alloc else 0.0)
+    out = dict(steps=steps, per_step=len(events) / steps, idle=1 - busy / span)
+    for name in ("alloc_scan", "fast_window"):
+        t = [e.time_range.elapsed_us() for e in events if name in e.name]
+        out[name] = (launched[name], sum(t) / len(t) / 1e3 if t else 0.0)
+        out[name + "_recorded"] = len(t)
+    return out
 
 
-def launch_count_phase(replays, k=32):
-    """[9]'s device activities per step, idle share and alloc_scan device
-    time, measured last, so that the profiler's hooks can slow no timed run:
-    for each quickstart policy, a fresh run of its machine at [10]'s size
-    (the same step kinds: a populate step, a fault on most threads; a
-    run-phase step, no fault, no scan), a window of ``k`` populate steps
-    and one of ``k`` run-phase steps.  ``replays`` is (replayed, chunks)
+def launch_count_phase(replays):
+    """[9]'s device activities per step, idle share and kernel device times,
+    measured last, so that the profiler's hooks can slow no timed run: for
+    each quickstart policy, a fresh run of its machine at [10]'s size (the
+    same step kinds: a populate step, a fault on most threads; a
+    run-phase step, no fault) under the default (blocked) engine, one
+    populate window (64 steps, replayed step by step) and four run-phase
+    windows (fast and hoist windows).  ``replays`` is (replayed, chunks)
     of each policy's timed run."""
     from repro_torch import quickstart as tq
     from repro_torch.core import TieredMemSimulator, benchmark_machine, workloads
@@ -440,31 +597,42 @@ def launch_count_phase(replays, k=32):
     trace = workloads.kv_store(mc, **REDUCED)
     p = trace.populate_steps
     for name, pc in tq.POLICIES:
-        stepper = TieredMemSimulator(mc=mc, pc=pc).stepper(trace)
-        stepper.advance(p // 2)
-        pop = profiled_window(stepper, k)
-        stepper.advance(p + 100 - stepper.s)
-        run = profiled_window(stepper, k)
-        check(pop["alloc_launches"] == k,
-              f"{name}: {pop['alloc_launches']} alloc_scan launches in {k} "
-              f"populate steps")
+        runner = TieredMemSimulator(mc=mc, pc=pc).runner(trace)
+        block = runner.block
+        runner.advance(2)
+        pop = profiled_window(runner, 1)
+        runner.advance(-(-p // block) - runner.w)
+        run = profiled_window(runner, 4)
+        check(pop["alloc_scan"][0] == pop["steps"] == block,
+              f"{name}: {pop['alloc_scan'][0]} alloc_scan launches in a "
+              f"populate window of {pop['steps']} steps")
+        check(run["fast_window"][0] > 0,
+              f"{name}: no fast_window launch in the run-phase windows")
         replayed, chunks = replays[name]
-        log(f"[9] {name.strip()} (profiler, {k} steps a window, after [10], "
-            f"a fresh run at [10]'s size): device activities per step: "
-            f"populate {pop['per_step']:.1f}, run phase {run['per_step']:.1f}; "
-            f"device idle share: populate {pop['idle']:.4f}, run phase "
-            f"{run['idle']:.4f}; alloc_scan {pop['alloc_ms']:.7f} ms per "
-            f"launch in the populate window, so about "
-            f"{pop['alloc_ms'] * chunks / 1e3:.4f} s over the {chunks} launches "
-            f"of the timed run, which replayed {replayed} of its {chunks} "
-            f"chunks")
+        log(f"[9] {name.strip()} (profiler, after [10], a fresh run at "
+            f"[10]'s size): blocked engine, device activities per step: "
+            f"populate {pop['per_step']:.1f} (a window of {pop['steps']} "
+            f"steps), run phase {run['per_step']:.2f} ({run['steps']} steps, "
+            f"{run['fast_window'][0]} fast_window launches of "
+            f"{run['fast_window'][1]:.7f} ms each over the "
+            f"{run['fast_window_recorded']} the profiler recorded); device "
+            f"idle share: populate {pop['idle']:.4f}, run phase "
+            f"{run['idle']:.4f}; alloc_scan {pop['alloc_scan'][1]:.7f} ms per "
+            f"launch in the populate window (over the "
+            f"{pop['alloc_scan_recorded']} of its {pop['alloc_scan'][0]} "
+            f"launches the profiler recorded), so about "
+            f"{pop['alloc_scan'][1] * chunks / 1e3:.4f} s "
+            f"over the {chunks} launches of the timed run, which replayed "
+            f"{replayed} of its {chunks} chunks")
 
 
 def quickstart_phase():
-    """[9] the quickstart on the card at full size, held to the golden file
-    of the JAX package's outputs; returns alloc_scan's launches and, per
-    policy, (chunks replayed, chunks) of its timed run (the device count
-    read once, after the run)."""
+    """[9] the quickstart on the card at full size under the default
+    (blocked) engine, held to the golden file of the JAX package's
+    outputs; the populate windows and the run-phase windows timed apart.
+    Returns the launches of each kernel and, per policy, (chunks replayed,
+    chunks) of alloc_scan in its timed run (the device count read once,
+    after the run)."""
     import torch
     from repro_torch import quickstart as tq
     from repro_torch.core import (TieredMemSimulator, benchmark_machine,
@@ -485,42 +653,55 @@ def quickstart_phase():
     log(f"[9] quickstart trace: {S} steps ({p} populate, {fault_steps} with a "
         f"fault) x {mc.n_threads} threads, n_map {mc.n_map}; digest matches "
         f"the golden file; trace and schedule {time.perf_counter() - t0:.1f} s")
-    launches, base, replays = 0, None, {}
+    launches, base, replays = {"alloc_scan": 0, "fast_window": 0}, None, {}
     for name, pc in tq.POLICIES:
         sim = TieredMemSimulator(mc=mc, pc=pc)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stepper = sim.stepper(trace)
+        runner = sim.runner(trace)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
+        pop_windows = -(-p // runner.block)
         ops.reset_launches()
-        torch.cuda.set_sync_debug_mode("error")
-        try:
-            stepper.advance()
-        finally:
-            torch.cuda.set_sync_debug_mode(0)
+        with sync_error():
+            runner.advance(pop_windows)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        with sync_error():
+            runner.advance()
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
         counts = ops.launch_counts()
         replays[name] = (alloc_scan_mod.replays(), alloc_scan_mod.chunks)
-        res = stepper.result()
-        t3 = time.perf_counter()
+        res = runner.result()
+        t4 = time.perf_counter()
         check(counts["alloc_scan"] == fault_steps,
               f"{name}: alloc_scan launches {counts['alloc_scan']} != "
               f"{fault_steps} steps with a fault")
-        launches += counts["alloc_scan"]
+        check(counts["fast_window"] == runner.fast_segments > 0,
+              f"{name}: fast_window launches {counts['fast_window']} != "
+              f"{runner.fast_segments} fast segments of the plan")
+        for k in launches:
+            launches[k] += counts[k]
         bad = tq.mismatches({"label": pc.label(), **tq.outputs(res, trace)},
                             golden["policies"][name])
         check(not bad, f"{name}: differs from the golden file: {bad[:8]}")
         if base is None:
             base = tq.run_phase(res, trace)[0]
+        n_pop = min(pop_windows * runner.block, S)
+        fast, full, hoist, split = runner.plan.counts
         log(f"[9] {tq.report_line(name.strip(), res, trace, base)}")
         log(f"[9] {name.strip()}: == golden file (every summary key and the "
             f"last and populate rows of every timeline key; integers exact, "
-            f"cycles to rtol 1e-5); launches {counts}; wall {t2 - t1:.2f} s "
-            f"for {S} steps ({S / (t2 - t1):.1f} steps/s) under "
-            f"set_sync_debug_mode('error'), set-up {t1 - t0:.2f} s, result "
-            f"{t3 - t2:.2f} s; alloc_scan replayed {replays[name][0]} of "
+            f"cycles to rtol 1e-5); {runner.plan.n_windows} windows of "
+            f"{runner.block}: {fast} fast, {full} full, {hoist} hoist, "
+            f"{split} split; {runner.fast_segments} fast segments; launches "
+            f"{counts}; under set_sync_debug_mode('error'): populate "
+            f"{t2 - t1:.2f} s for {n_pop} steps ({n_pop / (t2 - t1):.1f} "
+            f"steps/s), run phase {t3 - t2:.3f} s for {S - n_pop} steps "
+            f"({(S - n_pop) / (t3 - t2):.1f} steps/s), whole {t3 - t1:.2f} s "
+            f"({S / (t3 - t1):.1f} steps/s); set-up {t1 - t0:.2f} s, result "
+            f"{t4 - t3:.2f} s; alloc_scan replayed {replays[name][0]} of "
             f"{replays[name][1]} chunks")
     return launches, replays
 
@@ -551,23 +732,67 @@ def live_children() -> list[str]:
     return found
 
 
+def engines_agree(a, b, what):
+    """Two card runs, the blocked engine's ``a`` and the per-step engine's
+    (or the other fault path's) ``b``: every state field bitwise, the
+    timeline's integer keys exact, its f32 keys bitwise or, if not, to
+    rtol 1e-6.  Returns "bitwise" or "rtol 1e-6" for the f32 keys."""
+    import numpy as np
+    fa, fb = dict(state_fields(a.final_state)), dict(state_fields(b.final_state))
+    check(fa.keys() == fb.keys(), f"{what}: fields")
+    bad = [k for k in fa if not (fa[k].dtype == fb[k].dtype
+                                 and np.array_equal(fa[k], fb[k]))]
+    check(not bad, f"{what}: state fields differ: {bad}")
+    exact = True
+    for k, x in a.timeline.items():
+        y = b.timeline[k]
+        check(x.dtype == y.dtype and x.shape == y.shape, f"{what}: tl/{k}")
+        if np.array_equal(x, y):
+            continue
+        exact = False
+        check(x.dtype.kind == "f" and np.allclose(x, y, rtol=1e-6, atol=0.0),
+              f"{what}: timeline {k} differs")
+    return "bitwise" if exact else "rtol 1e-6"
+
+
+def timed_run(sim, trace):
+    """(result, runner, seconds) of one run on the card, the loop under the
+    sync check."""
+    import torch
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = sim.runner(trace)
+    ops.reset_launches()
+    with sync_error():
+        runner.advance()
+    torch.cuda.synchronize()
+    return runner.result(), runner, time.perf_counter() - t0
+
+
 def cpu_route_phase(width=6):
-    """[10] the card against the port's own CPU route, field for field over
-    the final state and the timeline, at a reduced size; the CPU runs go to
-    worker processes (this script with ``--cpu-route-worker``, ``width`` at
-    a time) while the card runs.  Every worker is waited for, and killed
-    first if the phase fails, so none outlives it."""
+    """[10] per case, the card's blocked run against its per-step run
+    (``debug=True``; ``engines_agree``) and against the port's own CPU
+    route, field for field over the final state and the timeline, at a
+    reduced size; the CPU runs go to worker processes (this script with
+    ``--cpu-route-worker``, ``width`` at a time) while the card runs.
+    Every worker is waited for, and killed first if the phase fails, so
+    none outlives it.  Then one small case (``benchmark_machine()``,
+    footprint 2^10, 64 run steps) adds the sequential fault path against
+    the batched one on the card.  Returns how the f32 timeline keys held
+    between the engines."""
     import os
     import pickle
     import tempfile
 
-    import torch
-    from repro_torch.core import TieredMemSimulator, fault_step_mask, workloads
+    from repro_torch.core import (TieredMemSimulator, benchmark_machine,
+                                  bhi_mig, fault_step_mask, workloads)
     from repro_torch.kernels import ops
 
     cases = sim_cases()
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")     # the CPU route only
     procs: list[subprocess.Popen] = []
+    held = []
 
     def top_up(tmp):
         while (len(procs) < len(cases)
@@ -584,18 +809,18 @@ def cpu_route_phase(width=6):
             for i, (name, mc, pc) in enumerate(cases):
                 trace = workloads.kv_store(mc, **REDUCED)
                 fault_steps = int(fault_step_mask(trace, mc).sum())
-                ops.reset_launches()
-                t1 = time.perf_counter()
-                stepper = TieredMemSimulator(mc=mc, pc=pc).stepper(trace)
-                torch.cuda.set_sync_debug_mode("error")
-                try:
-                    stepper.advance()
-                finally:
-                    torch.cuda.set_sync_debug_mode(0)
-                card = stepper.result()
-                t2 = time.perf_counter()
-                check(ops.launch_counts()["alloc_scan"] == fault_steps,
+                card, runner, blocked_s = timed_run(
+                    TieredMemSimulator(mc=mc, pc=pc), trace)
+                counts = ops.launch_counts()
+                check(counts["alloc_scan"] == fault_steps,
                       f"[10] {name}: alloc_scan launches != steps with a fault")
+                check(counts["fast_window"] == runner.fast_segments,
+                      f"[10] {name}: fast_window launches != fast segments")
+                per_step, _, per_step_s = timed_run(
+                    TieredMemSimulator(mc=mc, pc=pc, engine="per_step",
+                                       debug=True), trace)
+                held.append(engines_agree(card, per_step,
+                                          f"[10] {name}: blocked vs per-step"))
                 top_up(tmp)
                 rc = procs[i].wait()
                 top_up(tmp)
@@ -613,19 +838,93 @@ def cpu_route_phase(width=6):
                         if not same_arrays(card.timeline[k], timeline[k])]
                 check(not bad, f"[10] {name}: card != CPU route on {bad}")
                 s = card.summary()
-                log(f"[10] {name}: card == CPU route on all {len(fields)} "
-                    f"state fields and {len(timeline)} timeline keys; "
-                    f"{trace.n_steps} steps, faults {s['faults']}, data "
-                    f"migrations {s['data_migrations']}, l4 "
-                    f"{s['l4_mig_success']}, shadows {s['shadow_pages']}, oom "
-                    f"{s['oom_killed']}; card {t2 - t1:.2f} s, CPU "
-                    f"{cpu_s:.2f} s (one worker thread)")
+                log(f"[10] {name}: card blocked == card per-step (state "
+                    f"bitwise, integer timeline keys exact, f32 keys "
+                    f"{held[-1]}) == CPU route on all {len(fields)} state "
+                    f"fields and {len(timeline)} timeline keys; "
+                    f"{trace.n_steps} steps, windows {runner.plan.counts}, "
+                    f"{counts['fast_window']} fast_window launches, faults "
+                    f"{s['faults']}, data migrations {s['data_migrations']}, "
+                    f"l4 {s['l4_mig_success']}, shadows {s['shadow_pages']}, "
+                    f"oom {s['oom_killed']}; card blocked {blocked_s:.2f} s, "
+                    f"per-step {per_step_s:.2f} s, CPU {cpu_s:.2f} s (one "
+                    f"worker thread)")
         finally:
             for p in procs:
                 if p.poll() is None:
                     p.kill()
                 p.wait()
+    mc = benchmark_machine()
+    trace = workloads.kv_store(mc, 1 << 10, run_steps=64)
+    pc = bhi_mig()
+    batched, _, batched_s = timed_run(TieredMemSimulator(mc=mc, pc=pc), trace)
+    seq, _, seq_s = timed_run(TieredMemSimulator(
+        mc=mc, pc=pc, phase_b="sequential", debug=True), trace)
+    how = engines_agree(batched, seq, "[10] sequential vs batched")
+    check(seq.summary()["faults"] > 0, "[10] the small case has no fault")
+    log(f"[10] sequential fault path == batched on the card "
+        f"(benchmark_machine(), footprint 2^10, 64 run steps, "
+        f"{pc.label()}, {trace.n_steps} steps, {seq.summary()['faults']} "
+        f"faults): state bitwise, timeline f32 keys {how}; sequential "
+        f"{seq_s:.2f} s, batched {batched_s:.2f} s")
     log(f"[10] total {time.perf_counter() - t0:.1f} s")
+    return held
+
+
+def steady_state_phase():
+    """The steady-state trace of benchmarks/steady_state.py
+    (``kv_store(benchmark_machine(), 1 << 12, run_steps=2048, seed=10)``)
+    under Linux first-touch and BHi+Mig at ``autonuma_period`` 512: the
+    blocked and the per-step engine's wall clock (each loop under the sync
+    check), the two runs held equal as in [10]; then, over the run phase
+    of a third blocked run (its populate windows first, unprofiled: they
+    are most of the profiler's events), device activities per step, the
+    device's idle share and N1's device time per launch (profiler) against
+    an empty kernel and its byte bound at 64 rows."""
+    import torch
+    from repro_torch.core import (TieredMemSimulator, benchmark_machine,
+                                  bhi_mig, linux_default, workloads)
+    from repro_torch.core.sim import DEFAULT_BLOCK
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import pt_walk as pt_walk_mod
+    mc = benchmark_machine()
+    trace = workloads.kv_store(mc, 1 << 12, run_steps=2048, seed=10,
+                               name="steady")
+    S = trace.n_steps
+    for name, pc in (("linux_default", linux_default()),
+                     ("bhi_mig", bhi_mig())):
+        pc = dataclasses.replace(pc, autonuma=True, autonuma_period=512,
+                                 autonuma_budget=256)
+        blk, runner, blk_s = timed_run(TieredMemSimulator(mc=mc, pc=pc), trace)
+        n1 = ops.launch_counts()["fast_window"]
+        check(n1 == runner.fast_segments > 0,
+              f"steady {name}: fast_window launches {n1} != fast segments")
+        ps, _, ps_s = timed_run(TieredMemSimulator(
+            mc=mc, pc=pc, engine="per_step", debug=True), trace)
+        how = engines_agree(blk, ps, f"steady {name}: blocked vs per-step")
+        again = TieredMemSimulator(mc=mc, pc=pc).runner(trace)
+        pop_windows = -(-trace.populate_steps // again.block)
+        again.advance(pop_windows)
+        prof = profiled_window(again, again.plan.n_windows - pop_windows)
+        check(prof["fast_window"][0] == n1,
+              f"steady {name}: {prof['fast_window'][0]} fast_window launches "
+              f"in the profiled run phase != {n1}")
+        log(f"[steady] {name}: {S} steps ({trace.populate_steps} populate), "
+            f"windows {runner.plan.counts} (fast, full, hoist, split), "
+            f"{n1} fast_window launches; blocked {blk_s:.3f} s "
+            f"({S / blk_s:.1f} steps/s), per-step {ps_s:.3f} s "
+            f"({S / ps_s:.1f} steps/s), {ps_s / blk_s:.2f}x; blocked == "
+            f"per-step (state bitwise, f32 timeline keys {how}); profiler, "
+            f"run phase ({prof['steps']} steps): {prof['per_step']:.2f} "
+            f"device activities per step, idle {prof['idle']:.4f}, "
+            f"fast_window {prof['fast_window'][1]:.7f} ms per launch over "
+            f"the {prof['fast_window_recorded']} of its "
+            f"{prof['fast_window'][0]} launches that the profiler recorded")
+    floor = device_ms(lambda: pt_walk_mod.empty_cuda(torch.device("cuda")))
+    moved = fast_window_bytes(mc, 1, DEFAULT_BLOCK, mc.n_threads)
+    log(f"[steady] an empty kernel {floor:.7f} ms (the floor of one launch); "
+        f"fast_window's bytes bound at a full window ({DEFAULT_BLOCK} rows) "
+        f"{moved / HBM_BYTES_PER_S * 1e3:.9f} ms ({moved} B)")
 
 
 def main() -> int:
@@ -639,6 +938,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import configs
     from repro_torch.kernels import build, ops, ref
+    from repro_torch.kernels import sass as sass_mod
     from repro_torch.kernels import paged_attention as pa_mod
     from repro_torch.kernels import pt_walk as pt_walk_mod
     from repro_torch.memsys import tiered_kv as tkv
@@ -667,6 +967,13 @@ def main() -> int:
         elif "registers" in line:
             log(f"[2]   ptxas: {name}: {line.split(':', 1)[1].strip()}; "
                 f"{spill}")
+    # the fast window's f32 chain must be separate roundings: no FMA
+    _, sass = sass_mod.opcodes(build.CSRC / "fast_window.cu")
+    for kname, opc in sass.items():
+        check(opc["FFMA"] == 0 and opc["FFMA32I"] == 0,
+              f"{kname}: {opc['FFMA']} FFMA in the SASS of fast_window.cu")
+        log(f"[2] fast_window.cu SASS: {sum(opc.values())} instructions, "
+            f"FFMA {opc['FFMA']}, FMUL {opc['FMUL']}, FADD {opc['FADD']}")
 
     # -- 3. kernels against their plain versions ------------------------------
     gen = torch.Generator(device="cpu").manual_seed(0)
@@ -1211,9 +1518,15 @@ def main() -> int:
     # -- 8-10. the simulator ---------------------------------------------------
     torch.cuda.empty_cache()
     err["alloc_scan"], _, alloc_t = alloc_scan_phase(dev)
-    launches["alloc_scan"], replays = quickstart_phase()
+    err["fast_window"], window_t = fast_window_phase(dev)
+    sim_launches, replays = quickstart_phase()
+    launches.update(sim_launches)
     log(f"[9] total wall {time.perf_counter() - t_start:.1f} s")
-    cpu_route_phase()
+    held = cpu_route_phase()
+    log(f"[10] blocked vs per-step f32 timeline keys: {held.count('bitwise')} "
+        f"of {len(held)} cases bitwise, the rest to rtol 1e-6")
+    steady_state_phase()
+    log(f"[steady] total wall {time.perf_counter() - t_start:.1f} s")
     launch_count_phase(replays)
     log(f"[10] total wall {time.perf_counter() - t_start:.1f} s")
     left = live_children()
@@ -1230,7 +1543,10 @@ def main() -> int:
              "src/repro/kernels/paged_attention.py:81"),
             ("alloc_scan", alloc_t,
              "src/repro/core/alloc.py:201 (alloc_many's lax.scan body; no "
-             "Pallas original)")):
+             "Pallas original)"),
+            ("fast_window", window_t,
+             "src/repro/core/sim.py:1015 (_build_fast_window's row, the "
+             "inner lax.scan; no Pallas original)")):
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",

@@ -57,13 +57,16 @@ def first_touch_prefs(thread: torch.Tensor, mc) -> torch.Tensor:
 def interleave_prefs(ptr: torch.Tensor, mc) -> torch.Tensor:
     """Round-robin start node with wrap-around fallback, over the
     *allocatable* nodes only (-1 pads to the machine's n_nodes)."""
-    nodes = mc.alloc_nodes + (-1,) * (mc.n_nodes - len(mc.alloc_nodes))
-    table = torch.tensor(nodes, dtype=I32, device=ptr.device)
     a = len(mc.alloc_nodes)
     ids = torch.arange(mc.n_nodes, device=ptr.device)
     # positions past the allocatable nodes keep their -1
-    pos = torch.where(ids < a, (ptr.remainder(a)[..., None] + ids) % a, ids)
-    return table[pos]
+    pos = torch.where(ids < a, (ptr.remainder(a)[..., None] + ids) % a, a)
+    # the table lookup as selects: a table copied from the host would wait
+    # for the card, and the sequential fault path runs on it sync-free
+    out = torch.full_like(pos, -1, dtype=I32)
+    for i, node in enumerate(mc.alloc_nodes):
+        out = torch.where(pos == i, node, out)
+    return out
 
 
 def dram_prefs(thread: torch.Tensor, mc) -> torch.Tensor:

@@ -1,5 +1,7 @@
-"""The tiered-memory simulator's per-step engine (twin of the JAX package's
-``core/sim.py``, ``engine="per_step"`` with ``phase_b="batched"``).
+"""The tiered-memory simulator (twin of the JAX package's ``core/sim.py``):
+the time-blocked engine (``engine="blocked"``, the default) over the
+per-step engine (``engine="per_step"``), with the batched or the
+sequential fault path (``phase_b``).
 
 One step simulates one memory access per CPU thread:
 
@@ -15,7 +17,19 @@ One step simulates one memory access per CPU thread:
             entries come from live state; ``alloc.alloc_many`` serializes
             the allocator counters (the ``alloc_scan`` kernel on the card);
             PT placements, TLB fills and cycle and event accounting commit
-            vectorized across threads.
+            vectorized across threads.  ``phase_b="sequential"`` keeps the
+            reference's per-thread loop (its differential oracle).
+
+Time-blocked execution (:class:`BlockedRunner`): the trace is cut into
+``block``-step windows, classified on the host from the schedule's event
+rows (:func:`plan_windows`, the reference's classification field for
+field).  An event-free stretch runs as one :func:`fast_window_tile`: the
+tile's gathers, draws and latency terms vectorized over ``[rows, T]``,
+then the TLB and page-walk-cache chain through its rows in one launch of
+the ``fast_window`` kernel; a lone scan tick is hoisted between two fast
+segments; other events replay their span, or the window, step by step.
+Every branch replays the per-step f32 expression tree in per-step order,
+so the blocked engine equals the per-step engine bit for bit.
 
 The host half (traces, schedules, :class:`RunResult`) is numpy, as in the
 reference.  The step loop is a Python loop over the trace's steps on the
@@ -46,9 +60,11 @@ import torch
 from . import alloc as alloc_mod
 from . import migrate as migrate_mod
 from . import tlbs
-from .config import CostConfig, MachineConfig, PolicyConfig
+from .config import (CostConfig, MachineConfig, PolicyConfig, INTERLEAVE,
+                     PT_BIND_HIGH, PT_FOLLOW_DATA)
 from .state import SimState, init_state, is_dram
 from ..device import resolve_device
+from ..kernels import ops
 
 I32 = torch.int32
 F32 = torch.float32
@@ -265,8 +281,8 @@ def pow2ceil(n: int, floor: int = 1) -> int:
     return p
 
 
-# Step-window size of the reference's time-blocked engine (the facade's
-# ``block``; the blocked engine is not ported yet).
+# Step-window size of the time-blocked engine.  The window count
+# ceil(S / block) depends only on the trace shape, never its content.
 DEFAULT_BLOCK = 64
 
 
@@ -410,10 +426,11 @@ def _set_where(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
 class Stepper:
     """One run of the per-step engine in progress.
 
-    :meth:`TieredMemSimulator.run` is ``stepper(trace).advance()`` then
+    :meth:`TieredMemSimulator.run` is ``runner(trace).advance()`` then
     :meth:`result`; stepping in pieces gives the same state (a caller can
     time or profile a window of steps).  Everything the loop reads is put
-    on the device here, before the first step.
+    on the device here, before the first step.  The blocked engine
+    (:class:`BlockedRunner`) drives one of these for its per-step spans.
     """
 
     def __init__(self, sim: "TieredMemSimulator", trace: Trace,
@@ -425,6 +442,7 @@ class Stepper:
                              f"{mc.n_threads}")
         self.mc, self.cc, self.pc = mc, cc, pc
         self.trace = trace
+        self.sequential = sim.phase_b == "sequential"
         T = mc.n_threads
         self.budget = min(int(pc.autonuma_budget), mc.n_map)
         sched = fault_schedule(trace, mc)      # memoized; computed once
@@ -655,6 +673,142 @@ class Stepper:
         st.oom_step = torch.where(fails.any() & (st.oom_step < 0), now,
                                   st.oom_step)
 
+    # ------------------------- phase B, sequential --------------------------
+    def phase_b_sequential(self, s: int, now: int, m: torch.Tensor,
+                           fault_mask: torch.Tensor):
+        """The reference's per-thread fault loop (``phase_b_body``), the
+        threads in order.  Its ``lax.cond`` on a thread's fault reads
+        device state, so here every update is masked by the thread's own
+        predicates instead: the loop branches on host values only."""
+        st, cc = self.st, self.cc
+        rb = self.mc.radix_bits
+        llc_hit = float(cc.llc_hit)
+        w_row = self.is_write[s]
+        cyc = st.cycles
+        for t in range(self.mc.n_threads):
+            m_t = m[t:t + 1]
+            do = fault_mask[t] & ~st.oom_killed
+            now_mapped = st.data_node.index_select(0, m_t) >= 0
+            wait = do & now_mapped
+            fault = do & ~now_mapped
+            wait_cost = torch.where(wait, cc.fault_base + llc_hit, 0.0)
+            fcost = self._fault_sequential(t, m_t, fault, now)
+            handled = wait | fault
+            for tlb, tag in ((st.l1_tlb, m_t), (st.stlb, m_t),
+                             (st.pde_pwc, m_t >> rb),
+                             (st.pdpte_pwc, m_t >> (2 * rb))):
+                tlbs.update_one(tlb, t, tag, now, handled)
+            st.access_recent.index_add_(0, m_t, handled.to(I32))
+            st.written_recent.index_add_(0, m_t, (handled & w_row[t]).to(I32))
+            all_cost = fcost + wait_cost
+            cyc.total[t:t + 1].add_(all_cost)
+            cyc.fault[t:t + 1].add_(all_cost)
+            cyc.data_mem[t:t + 1].add_(torch.where(wait, llc_hit, 0.0))
+
+    def _alloc_pt_level(self, t: int, arr: torch.Tensor, idx: torch.Tensor,
+                        is_upper: bool, c: torch.Tensor, now: int,
+                        gate: torch.Tensor) -> torch.Tensor:
+        """One PT level of thread ``t``'s fault (the reference's
+        ``_alloc_pt_level``), where ``gate`` (the thread faults) holds;
+        updates ``arr`` in place and returns the cost chain ``c``."""
+        st, mc, cc = self.st, self.mc, self.cc
+        thp = mc.page_order > 0
+        tid, dpol, ppol = self.tid[t], self.data_policy[0], self.pt_policy[0]
+        old = arr.index_select(0, idx)
+        missing = gate & (old < 0)
+        # recompute per allocation: the interleave cursor advances with
+        # every page handed out
+        data_prefs = alloc_mod.data_prefs_for(dpol, tid, mc, st.interleave_ptr)
+        prefs, ignore_wm = alloc_mod.pt_prefs_for(ppol, is_upper, tid, mc,
+                                                  data_prefs, thp)
+        node, slow, nf, nr, ok = alloc_mod.alloc_one(
+            st.node_free, st.node_reclaimable, prefs, self.wm, ignore_wm)
+        if is_upper or thp:
+            # BHi falls back to the data policy when DRAM is exhausted
+            node2, slow2, nf2, nr2, ok2 = alloc_mod.alloc_one(
+                st.node_free, st.node_reclaimable, data_prefs, self.wm, False)
+            is_bhi = ppol == PT_BIND_HIGH
+            use_fb = is_bhi & ~ok
+            node = torch.where(use_fb, node2, node)
+            slow = torch.where(use_fb, slow2, slow)
+            nf = torch.where(use_fb, nf2, nf)
+            nr = torch.where(use_fb, nr2, nr)
+            ok = ok | (is_bhi & ok2)
+        node = node.reshape(1)
+        oom = missing & ~ok            # bind_all pathology (section 3.5)
+        do = missing & ok
+        arr.index_copy_(0, idx.long(), torch.where(do, node, old))
+        zero_cost = torch.where(
+            do, cc.zero_lines * self.tables.write[node.long() + 1], 0.0)
+        acost = torch.where(do, torch.where(slow, float(cc.alloc_slow),
+                                            float(cc.alloc_fast)), 0.0)
+        adv = do & (ppol == PT_FOLLOW_DATA) & (dpol == INTERLEAVE)
+        st.node_free = torch.where(do, nf, st.node_free)
+        st.node_reclaimable = torch.where(do, nr, st.node_reclaimable)
+        st.interleave_ptr = st.interleave_ptr + adv.to(I32).reshape(())
+        st.oom_killed = st.oom_killed | oom.reshape(())
+        st.oom_step = torch.where(oom.reshape(()) & (st.oom_step < 0), now,
+                                  st.oom_step)
+        cnt = st.counters
+        cnt.pt_allocs.index_add_(0, node.clamp(0, mc.n_nodes - 1),
+                                 do.to(I32))
+        cnt.slow_allocs += (do & slow).to(I32).reshape(())
+        cnt.oom_kills += oom.to(I32).reshape(())
+        return c + zero_cost + acost + torch.where(oom, float(cc.oom_scan), 0.0)
+
+    def _fault_sequential(self, t: int, m_t: torch.Tensor,
+                          fault: torch.Tensor, now: int) -> torch.Tensor:
+        """Thread ``t``'s fault handler (the reference's ``run_fault``),
+        masked by ``fault``: the four PT levels, then the data page.
+        Returns its cycles (0 where it does not fault)."""
+        st, mc, cc = self.st, self.mc, self.cc
+        rb = mc.radix_bits
+        read_lat, write_lat = self.tables.read, self.tables.write
+        c = torch.zeros((1,), dtype=F32, device=m_t.device)
+        levels = ((st.root_node, torch.zeros_like(m_t), True),
+                  (st.top_node,
+                   (m_t >> (3 * rb)).clamp(max=st.top_node.shape[0] - 1), True),
+                  (st.mid_node,
+                   (m_t >> (2 * rb)).clamp(max=st.mid_node.shape[0] - 1), True),
+                  (st.leaf_node, m_t >> rb, False))
+        for arr, idx, is_upper in levels:     # each updated in place
+            c = self._alloc_pt_level(t, arr, idx, is_upper, c, now, fault)
+
+        dprefs = alloc_mod.data_prefs_for(self.data_policy[0], self.tid[t], mc,
+                                          st.interleave_ptr)
+        node, slow, nf, nr, ok = alloc_mod.alloc_one(
+            st.node_free, st.node_reclaimable, dprefs, self.wm, False)
+        node = node.reshape(1)
+        done = fault & ok
+        oom = fault & ~ok
+        st.data_node.index_copy_(0, m_t.long(), torch.where(
+            fault, torch.where(ok, node, -1), st.data_node.index_select(0, m_t)))
+        leaf_i = m_t >> rb
+        st.leaf_dram_children.index_add_(0, leaf_i,
+                                         (done & is_dram(node)).to(I32))
+        adv = (self.data_policy[0] == INTERLEAVE) & done
+        c = c + torch.where(ok, cc.zero_lines * write_lat[node.long() + 1]
+                            + torch.where(slow, float(cc.alloc_slow),
+                                          float(cc.alloc_fast)),
+                            float(cc.oom_scan))
+        mid_n = st.mid_node.index_select(
+            0, (m_t >> (2 * rb)).clamp(max=st.mid_node.shape[0] - 1))
+        leaf_n = st.leaf_node.index_select(0, leaf_i)
+        c = c + cc.fault_base + read_lat[mid_n.long() + 1] \
+            + write_lat[leaf_n.long() + 1]
+        st.node_free = torch.where(done, nf, st.node_free)
+        st.node_reclaimable = torch.where(done, nr, st.node_reclaimable)
+        st.interleave_ptr = st.interleave_ptr + adv.to(I32).reshape(())
+        st.oom_killed = st.oom_killed | oom.reshape(())
+        st.oom_step = torch.where(oom.reshape(()) & (st.oom_step < 0), now,
+                                  st.oom_step)
+        cnt = st.counters
+        cnt.data_allocs.index_add_(0, node.clamp(0, mc.n_nodes - 1),
+                                   done.to(I32))
+        cnt.faults += fault.to(I32).reshape(())
+        cnt.oom_kills += oom.to(I32).reshape(())
+        return torch.where(fault, c, 0.0)
+
     # ------------------------------ frees -----------------------------------
     def free_segment(self, fid: int):
         st, nn = self.st, self.mc.n_nodes
@@ -701,20 +855,27 @@ class Stepper:
         hi = self.trace.n_steps if n_steps is None else \
             min(self.s + int(n_steps), self.trace.n_steps)
         for s in range(self.s, hi):
-            now = self.start + s
-            if self.do_free[s]:
-                self.free_segment(int(self.free_seg[s]))
-            if self.do_scan[s]:
-                self.scan_op(s)
-            m, fault_mask = self.phase_a(s, now)
-            # faults are bursty (populate) or rare (steady state): skip the
-            # fault engine entirely on fault-free steps
-            if self.has_fault[s]:
-                self.phase_b(s, now, m, fault_mask)
-            self._record(s)
+            self.step(s)
         self.s = hi
         self.st.step.fill_(self.start + hi)
         return self
+
+    def step(self, s: int):
+        """Step ``s`` of the trace: free, scan tick, phase A, phase B (on a
+        step with a fault), timeline row."""
+        now = self.start + s
+        if self.do_free[s]:
+            self.free_segment(int(self.free_seg[s]))
+        if self.do_scan[s]:
+            self.scan_op(s)
+        m, fault_mask = self.phase_a(s, now)
+        # faults are bursty (populate) or rare (steady state): skip the
+        # fault engine entirely on fault-free steps
+        if self.has_fault[s]:
+            phase_b = self.phase_b_sequential if self.sequential \
+                else self.phase_b
+            phase_b(s, now, m, fault_mask)
+        self._record(s)
 
     def _record(self, s: int):
         st = self.st
@@ -740,37 +901,413 @@ class Stepper:
                          policy_label=self.pc.label())
 
 
+# --------------------------- time-blocked engine ------------------------------
+
+def _geom_out_rows(geom, block: int) -> int:
+    """Rows each window emits in the reference's compiled program
+    (``R_out``): every branch pads its segment outputs to one width."""
+    r = block
+    if geom is not None:
+        _, hoist, split = geom
+        if hoist is not None:
+            r = max(r, hoist[0] + hoist[1])
+        if split is not None:
+            r = max(r, split[0] + split[1] + split[2])
+    return r
+
+
+def _geom_rows_in(geom, block: int) -> int:
+    """Row padding of each window's input tile: ``2 * block`` whenever a
+    hoist or split branch exists (its segment slices must never clamp and
+    never read the next window's rows)."""
+    if geom is not None and (geom[1] is not None or geom[2] is not None):
+        return 2 * block
+    return block
+
+
+# Idle-pad fill values for the nine per-step window arrays, in xs order:
+# (va, is_write, free_seg, llc, sched, valid, do_free, do_scan,
+# has_fault).  sched=0 carries no DO/WINNER bits, fid=-1 frees nothing,
+# valid=False gates the step clock.
+WINDOW_PAD_FILLS = (-1, False, -1, 0.0, 0, False, False, False, False)
+
+
+def window_tiles(arrays, n_steps: int, block: int,
+                 fills=WINDOW_PAD_FILLS, rows_to: Optional[int] = None):
+    """Idle-pad per-step host arrays to a multiple of ``block`` and tile
+    them ``[n_windows, rows, ...]``; ``rows_to`` (``WindowPlan.rows_in``)
+    also pads every window's row axis past ``block``, per window."""
+    n_w = -(-n_steps // block)
+    pad = n_w * block - n_steps
+    rpad = (rows_to or block) - block
+    out = []
+    for a, fill in zip(arrays, fills):
+        a = np.asarray(a)
+        if pad:
+            a = np.concatenate(
+                [a, np.full((pad,) + a.shape[1:], fill, a.dtype)])
+        a = a.reshape((n_w, block) + a.shape[1:])
+        if rpad:
+            a = np.concatenate(
+                [a, np.full((n_w, rpad) + a.shape[2:], fill, a.dtype)],
+                axis=1)
+        out.append(a)
+    return out
+
+
+# Semantic window kinds.  ``WindowPlan.kind`` stores the reference's
+# *branch index* over the kinds its geometry has ([fast] + [full][hoist]
+# [split], in that order); :func:`window_kinds` maps it back.
+WIN_FAST, WIN_FULL, WIN_HOIST, WIN_SPLIT = range(4)
+
+
+@dataclasses.dataclass(frozen=True)
+class WindowPlan:
+    """Host-side plan of one blocked run (the reference's, field for
+    field).
+
+    ``geom`` is ``None`` when every window is fast, else ``(has_full,
+    (Ph, Qh) | None, (Ps, Es, Qs) | None)`` with pow2 segment capacities;
+    ``kind`` / ``seg_a`` / ``seg_b`` per window: branch index, event or
+    tick start row, suffix start row; ``emit_valid`` (``[n_windows,
+    R_out]`` bool) maps the reference's emitted rows back to trace steps;
+    ``counts`` is (fast, full, hoist, split)."""
+    geom: Optional[tuple]
+    kind: np.ndarray
+    seg_a: np.ndarray
+    seg_b: np.ndarray
+    emit_valid: np.ndarray
+    rows_in: int
+    block: int
+    counts: Tuple[int, int, int, int]
+
+    @property
+    def n_windows(self) -> int:
+        return len(self.kind)
+
+
+def _q2(n: int) -> int:
+    return 0 if n <= 0 else pow2ceil(int(n))
+
+
+def plan_windows(do_free, do_scan, has_fault, n_steps: int,
+                 block: int) -> WindowPlan:
+    """Classify each ``block``-step window of a trace and quantize the
+    split geometry, as the reference does:
+
+      fast    no event rows at all;
+      hoist   no frees or faults and exactly one scan tick at row ``t``:
+              fast[0:t), the hoisted scan op, fast[t:block);
+      split   a narrow event span (``<= block // 2``): fast prefix,
+              per-step replay of the span, fast suffix;
+      full    wide spans, and every partial tail window with fault rows.
+
+    Segment capacities are per-class maxima rounded up to powers of two."""
+    n_w = -(-n_steps // block)
+    pad = n_w * block - n_steps
+
+    def tile(m):
+        m = np.asarray(m, bool)
+        if pad:
+            m = np.concatenate([m, np.zeros(pad, bool)])
+        return m.reshape(n_w, block)
+
+    df, ds, hf = tile(do_free), tile(do_scan), tile(has_fault)
+    vl = tile(np.ones(n_steps, bool))
+    ev = df | ds | hf
+
+    kinds = np.full(n_w, WIN_FAST, np.int32)
+    seg_a = np.zeros(n_w, np.int32)
+    seg_b = np.zeros(n_w, np.int32)
+    hoist_rows, split_rows = [], []
+    for w in range(n_w):
+        if not ev[w].any():
+            continue
+        if not (df[w] | hf[w]).any() and int(ds[w].sum()) == 1:
+            t = int(np.argmax(ds[w]))
+            kinds[w] = WIN_HOIST
+            seg_a[w] = seg_b[w] = t
+            hoist_rows.append(t)
+            continue
+        idx = np.flatnonzero(ev[w])
+        f, l = int(idx[0]), int(idx[-1])
+        if (l - f + 1) > block // 2 or (hf[w].any() and not vl[w].all()):
+            kinds[w] = WIN_FULL
+        else:
+            kinds[w] = WIN_SPLIT
+            seg_a[w], seg_b[w] = f, l + 1
+            split_rows.append((f, l - f + 1, block - 1 - l))
+
+    has_full = bool((kinds == WIN_FULL).any())
+    hoist_g = (_q2(max(hoist_rows)), _q2(block - min(hoist_rows))) \
+        if hoist_rows else None
+    split_g = (_q2(max(r[0] for r in split_rows)),
+               _q2(max(r[1] for r in split_rows)),
+               _q2(max(r[2] for r in split_rows))) if split_rows else None
+    geom = (has_full, hoist_g, split_g) \
+        if (has_full or hoist_g or split_g) else None
+
+    branch = {WIN_FAST: 0}
+    for k, present in ((WIN_FULL, has_full),
+                       (WIN_HOIST, hoist_g is not None),
+                       (WIN_SPLIT, split_g is not None)):
+        if present:
+            branch[k] = len(branch)
+    kind = np.array([branch[int(k)] for k in kinds], np.int32)
+
+    r_out = _geom_out_rows(geom, block)
+    rows_in = _geom_rows_in(geom, block)
+    emit = np.zeros((n_w, r_out), bool)
+    vlx = np.concatenate([vl, np.zeros_like(vl)], axis=1)
+    for w in range(n_w):
+        k = int(kinds[w])
+        if k in (WIN_FAST, WIN_FULL):
+            emit[w, :block] = vl[w]
+            continue
+        a, b = int(seg_a[w]), int(seg_b[w])
+        if k == WIN_HOIST:
+            ph, qh = hoist_g
+            pre = vlx[w, :ph] & (np.arange(ph) < a)
+            emit[w, :ph + qh] = np.concatenate([pre, vlx[w, b:b + qh]])
+        else:
+            ps, es, qs = split_g
+            pre = vlx[w, :ps] & (np.arange(ps) < a)
+            mid = vlx[w, a:a + es] & (np.arange(es) < (b - a))
+            emit[w, :ps + es + qs] = np.concatenate(
+                [pre, mid, vlx[w, b:b + qs]])
+    assert int(emit.sum()) == n_steps, \
+        f"window plan emits {int(emit.sum())} rows for {n_steps} steps"
+    return WindowPlan(
+        geom=geom, kind=kind, seg_a=seg_a, seg_b=seg_b, emit_valid=emit,
+        rows_in=rows_in, block=block,
+        counts=tuple(int((kinds == k).sum()) for k in range(4)))
+
+
+def blocked_xs(trace: Trace, mc: MachineConfig, pc: PolicyConfig,
+               start_step: int = 0, block: int = DEFAULT_BLOCK,
+               sched: Optional[np.ndarray] = None, device=None):
+    """The reference's window-tiled inputs: ``(xs, plan)``, ``xs`` the
+    nine per-step arrays tiled ``[n_windows, plan.rows_in, ...]`` plus the
+    plan's branch index and segment offsets, as tensors on ``device``.
+    :class:`BlockedRunner` reads the per-step rows directly and needs only
+    the plan."""
+    dev = resolve_device(device)
+    S = trace.n_steps
+    if sched is None:
+        sched = fault_schedule(trace, mc)
+    do_free = np.asarray(trace.free_seg) >= 0
+    do_scan = scan_step_mask(S, int(pc.autonuma_period),
+                             enabled=bool(pc.autonuma),
+                             start_step=start_step)
+    has_fault = np.asarray((sched & SCHED_DO) > 0).any(axis=1)
+    plan = plan_windows(do_free, do_scan, has_fault, S, block)
+    tiles = window_tiles(
+        (trace.va.astype(np.int32), np.asarray(trace.is_write, bool),
+         np.asarray(trace.free_seg, np.int32),
+         np.asarray(trace.llc, np.float32), sched, np.ones((S,), bool),
+         do_free, do_scan, has_fault),
+        S, block, rows_to=plan.rows_in)
+    xs = tuple(torch.as_tensor(a, device=dev)
+               for a in (*tiles, plan.kind, plan.seg_a, plan.seg_b))
+    return xs, plan
+
+
+def window_kinds(plan: WindowPlan) -> np.ndarray:
+    """The semantic kind (``WIN_*``) of each window of ``plan``."""
+    order = [WIN_FAST]
+    if plan.geom is not None:
+        order += [k for k, g in zip((WIN_FULL, WIN_HOIST, WIN_SPLIT),
+                                    plan.geom) if g]
+    return np.asarray(order, np.int32)[plan.kind]
+
+
+def window_ops(plan: WindowPlan, n_steps: int):
+    """Per window, what the blocked engine runs, in step order:
+    ``("fast", a, b)`` the event-free steps ``a..b-1`` in one fast window,
+    ``("steps", a, b)`` those steps replayed one by one, ``("scan", s,
+    s + 1)`` the scan tick of step ``s`` hoisted before it.  Empty
+    segments are left out: they are exact no-ops in the reference."""
+    B = plan.block
+    out = []
+    for w, k in enumerate(window_kinds(plan)):
+        lo, hi = w * B, min((w + 1) * B, n_steps)
+        a, b = lo + int(plan.seg_a[w]), lo + int(plan.seg_b[w])
+        if k == WIN_FAST:
+            segs = [("fast", lo, hi)]
+        elif k == WIN_FULL:
+            segs = [("steps", lo, hi)]
+        elif k == WIN_HOIST:
+            segs = [("fast", lo, a), ("scan", a, a + 1), ("fast", a, hi)]
+        else:
+            segs = [("fast", lo, a), ("steps", a, b), ("fast", b, hi)]
+        out.append([(op, x, y) for op, x, y in segs if y > x])
+    return out
+
+
+def fast_window_tile(stepper: Stepper, s0: int, s1: int) -> None:
+    """Steps ``s0..s1-1`` of ``stepper``'s run, an event-free segment (no
+    free, no scan tick, no fault), as the reference's ``fast_window``.
+
+    Placements are constant over such a segment, so every gather,
+    Bernoulli draw and latency term is computed at once over ``[rows, T]``
+    (the reference's tile precompute, with ``Stepper.phase_a``'s site seeds
+    and thresholds); the TLB and page-walk-cache chain runs through the
+    rows in one ``ops.fast_window`` launch; the hotness counts are one
+    scatter-add each.  Mapped-ness needs no check: host-mapped is a subset
+    of device-mapped, so every active access hits a mapped page.  The
+    timeline rows are the kernel's per-row sums over the threads (the
+    same reduction as ``Stepper._record``) beside the segment's constant
+    columns."""
+    st, mc, cc = stepper.st, stepper.mc, stepper.cc
+    rb, R = mc.radix_bits, s1 - s0
+    read_lat, write_lat = stepper.tables.read, stepper.tables.write
+    va, w = stepper.va[s0:s1], stepper.is_write[s0:s1]
+    m = torch.where(va >= 0, va >> mc.map_shift, 0).clamp(0, mc.n_map - 1)
+    active = (va >= 0) & ~st.oom_killed
+    now0 = stepper.start + s0
+    now = torch.arange(now0, now0 + R, device=va.device)[:, None]
+    leaf_id, mid_id, top_id = m >> rb, m >> (2 * rb), m >> (3 * rb)
+
+    def gather(arr, idx):
+        return arr.index_select(0, idx.reshape(-1)).view(idx.shape)
+
+    leaf_n = gather(st.leaf_node, leaf_id)
+    mid_n = gather(st.mid_node, mid_id.clamp(max=st.mid_node.shape[0] - 1))
+    top_n = gather(st.top_node, top_id.clamp(max=st.top_node.shape[0] - 1))
+    data_n = gather(st.data_node, m)
+    # the four draws of sites 1-4 (leaf, mid, top, data) at once
+    draws = bern_hash(stepper.site_seeds[:, :, None], (
+        torch.stack([m, mid_id, top_id, m]), now, stepper.tid)) \
+        < stepper.thr[s0:s1].transpose(0, 1)
+    leaf_llc, up1_llc, up2_llc, data_llc = draws.unbind(0)
+    llc_hit = float(cc.llc_hit)
+    leaf_read = torch.where(leaf_llc, llc_hit, read_lat[leaf_n.long() + 1])
+    mid_read_miss = torch.where(up1_llc, llc_hit, read_lat[mid_n.long() + 1])
+    top_read_miss = torch.where(up2_llc, llc_hit, read_lat[top_n.long() + 1])
+    dl = data_n.long() + 1
+    mem_lat = torch.where(w, write_lat[dl], read_lat[dl])
+    data_cost = torch.where(active, torch.where(data_llc, llc_hit, mem_lat),
+                            0.0)
+
+    # the timeline's window constants: the state at the segment's start
+    stepper._record(s0)
+    tl_f, tl_i = stepper.tl_f32[s0:s1], stepper.tl_i32[s0:s1]
+    tl_f[1:] = tl_f[0]
+    tl_i[1:] = tl_i[0]
+
+    cyc, c = st.cycles, st.counters
+    cum, counts = ops.fast_window(
+        m[None], torch.stack([active, leaf_llc, up1_llc, up2_llc], -1)[None],
+        torch.stack([leaf_read, mid_read_miss, top_read_miss, data_cost],
+                    -1)[None],
+        [(tlb.tags[None], tlb.lru[None]) for tlb in
+         (st.l1_tlb, st.stlb, st.pde_pwc, st.pdpte_pwc)],
+        [a[None] for a in (cyc.total, cyc.walk, cyc.stall, cyc.data_mem)],
+        now0=now0, radix_bits=rb, thp=mc.page_order > 0,
+        costs=(cc.llc_hit, cc.stlb_hit, cc.cpu_work, cc.data_stall_frac))
+    tl_f[:, :4] = cum[0].sum(-1)
+    counted = counts[0].sum(-1, dtype=I32)     # l1 hits, stlb hits, walks,
+    tl_i[:, 4] += counted[:, 2]                # walk reads since s0
+    tl_i[:, 7:9] += counted[:, :2]
+    c.l1_hits += counted[-1, 0]
+    c.stlb_hits += counted[-1, 1]
+    c.walks += counted[-1, 2]
+    c.walk_mem_reads += counted[-1, 3]
+    # per-row adds commute (integers), so one scatter-add for the tile
+    st.access_recent.index_add_(0, m.reshape(-1), active.reshape(-1).to(I32))
+    st.written_recent.index_add_(0, m.reshape(-1),
+                                 (active & w).reshape(-1).to(I32))
+
+
+class BlockedRunner:
+    """One run of the time-blocked engine in progress (the reference's
+    ``_build_blocked_body`` and the blocked half of its ``run``).
+
+    The host plan (:func:`plan_windows`) dispatches each window: a fast
+    window is one :func:`fast_window_tile`; a full window replays its steps
+    through a :class:`Stepper`, with the configured fault path; a hoist
+    window runs its fast prefix, the scan tick, its fast suffix; a split
+    window its fast prefix, the event span step by step, its fast suffix.
+    Only live rows run (the reference masks the others into exact
+    no-ops), so the kernel is launched once per non-empty fast segment
+    (:attr:`fast_segments`).  :meth:`advance` runs windows, as
+    ``Stepper.advance`` runs steps; the timeline comes out in step order.
+    """
+
+    def __init__(self, sim: "TieredMemSimulator", trace: Trace,
+                 state: Optional[SimState] = None):
+        self.stepper = Stepper(sim, trace, state)
+        S = trace.n_steps
+        self.block = min(sim.block, pow2ceil(S))
+        stp = self.stepper
+        self.plan = plan_windows(stp.do_free, stp.do_scan, stp.has_fault, S,
+                                 self.block)
+        self.ops = window_ops(self.plan, S)
+        self.w = 0                          # windows done
+
+    @property
+    def fast_segments(self) -> int:
+        """Fast segments of the whole run: the kernel launches it makes."""
+        return sum(op == "fast" for win in self.ops for op, _, _ in win)
+
+    @property
+    def st(self) -> SimState:
+        return self.stepper.st
+
+    def advance(self, n_windows: Optional[int] = None) -> "BlockedRunner":
+        """Run the next ``n_windows`` windows (all that are left by
+        default)."""
+        stp = self.stepper
+        n_w = self.plan.n_windows
+        hi = n_w if n_windows is None else min(self.w + int(n_windows), n_w)
+        for win in self.ops[self.w:hi]:
+            for op, a, b in win:
+                if op == "fast":
+                    fast_window_tile(stp, a, b)
+                elif op == "scan":
+                    stp.scan_op(a)
+                else:
+                    for s in range(a, b):
+                        stp.step(s)
+        self.w = hi
+        stp.s = min(hi * self.block, stp.trace.n_steps)
+        stp.st.step.fill_(stp.start + stp.s)
+        return self
+
+    def result(self) -> RunResult:
+        """The windows run so far as a :class:`RunResult` (host numpy)."""
+        return self.stepper.result()
+
+
 class TieredMemSimulator:
     """Public facade: configure once, run traces under a policy bundle.
 
-    Keeps the reference's signature.  This port has one engine, the
-    per-step engine with the batched fault path (the reference's
-    ``engine="per_step"``, ``phase_b="batched"``), which the reference
-    holds bit-identical to its default blocked engine; so it is the
-    default here and needs no ``debug``.  ``engine="blocked"`` and
-    ``phase_b="sequential"`` are not ported yet and raise.  There is no
-    ``telemetry``.  ``device`` (``None``: the CUDA device) is where the
-    run's state lives and its steps run.
+    Keeps the reference's signature and gate.  ``engine="blocked"`` (the
+    default) is the time-blocked engine (:class:`BlockedRunner`);
+    ``"per_step"`` is the step-at-a-time engine (:class:`Stepper`).
+    ``phase_b="batched"`` (default) is the conflict-aware vectorized fault
+    path, ``"sequential"`` the per-thread loop it is tested against.  The
+    per-step engine and the sequential path are differential oracles and
+    need ``debug=True``, as in the reference.  There is no ``telemetry``.
+    ``device`` (``None``: the CUDA device) is where the run's state lives
+    and its steps run.
     """
 
     def __init__(self, mc: MachineConfig = MachineConfig(),
                  cc: CostConfig = CostConfig(),
                  pc: PolicyConfig = PolicyConfig(),
                  phase_b: str = "batched",
-                 engine: str = "per_step",
+                 engine: str = "blocked",
                  block: int = DEFAULT_BLOCK,
                  debug: bool = False,
                  device=None):
-        if engine == "blocked":
-            raise NotImplementedError(
-                "engine='blocked' is not ported yet (ROADMAP.md queue 1, "
-                "item 6); the per-step engine gives the same numbers")
-        if phase_b == "sequential":
-            raise NotImplementedError(
-                "phase_b='sequential' is not ported yet (ROADMAP.md queue 1, "
-                "item 4a); the batched fault path gives the same numbers")
-        if engine != "per_step" or phase_b != "batched":
+        if engine not in ("blocked", "per_step") or \
+                phase_b not in ("batched", "sequential"):
             raise ValueError(f"unknown engine={engine!r} or phase_b={phase_b!r}")
+        if (engine != "blocked" or phase_b != "batched") and not debug:
+            raise ValueError(
+                f"engine={engine!r} phase_b={phase_b!r} are reference "
+                f"(oracle) paths; pass debug=True to run them")
         self.mc, self.cc, self.pc = mc, cc, pc
         self.phase_b = phase_b
         self.engine = engine
@@ -778,11 +1315,14 @@ class TieredMemSimulator:
         self.debug = bool(debug)
         self.device = resolve_device(device)
 
-    def stepper(self, trace: Trace, state: Optional[SimState] = None
-                ) -> Stepper:
+    def runner(self, trace: Trace, state: Optional[SimState] = None):
         """A run of ``trace`` from ``state`` (the empty machine by
-        default; a resumed state may hold tensors or numpy arrays)."""
+        default; a resumed state may hold tensors or numpy arrays) on the
+        configured engine: a :class:`BlockedRunner` (``advance`` by
+        windows) or a :class:`Stepper` (``advance`` by steps)."""
+        if self.engine == "blocked":
+            return BlockedRunner(self, trace, state)
         return Stepper(self, trace, state)
 
     def run(self, trace: Trace, state: Optional[SimState] = None) -> RunResult:
-        return self.stepper(trace, state).advance().result()
+        return self.runner(trace, state).advance().result()

@@ -97,3 +97,25 @@ def flush_all(tlb: TlbArray) -> TlbArray:
     tlb.tags.fill_(-1)
     tlb.lru.fill_(-1)
     return tlb
+
+
+def update_one(tlb: TlbArray, thread: int, tag: torch.Tensor, now,
+               active: torch.Tensor) -> TlbArray:
+    """Touch-or-insert ``tag`` (a 0-dim tensor) in thread ``thread``'s
+    cache where ``active`` (0-dim bool) is set, in place: the hitting way,
+    else the lowest-index way of least ``lru`` (used by the sequential
+    fault path)."""
+    one = TlbArray(tags=tlb.tags[thread:thread + 1],
+                   lru=tlb.lru[thread:thread + 1])
+    tag = tag.reshape(1)
+    _, way, row = _probe(one, tag)
+    _write(one, row, way, tag, now, active.reshape(1))
+    return tlb
+
+
+def lookup_one(tlb: TlbArray, thread: int, tag: torch.Tensor) -> torch.Tensor:
+    """Hit test (0-dim bool) of ``tag`` in thread ``thread``'s cache; no
+    state change."""
+    one = TlbArray(tags=tlb.tags[thread:thread + 1],
+                   lru=tlb.lru[thread:thread + 1])
+    return _probe(one, tag.reshape(1))[0][0]

@@ -14,6 +14,7 @@ import torch
 
 from . import alloc_scan as _alloc_scan
 from . import block_copy as _block_copy
+from . import fast_window as _fast_window
 from . import paged_attention as _paged_attention
 from . import pt_walk as _pt_walk
 from . import ref
@@ -249,15 +250,73 @@ def alloc_scan(node_free, node_reclaimable, interleave_ptr, oom_killed, wm,
                                        bool(thp))
 
 
+def fast_window(m, flags, terms, caches, acc, *, now0: int, radix_bits: int,
+                thp: bool, costs):
+    """The fast window's inner scan: the rows of an event-free segment, in
+    order, for ``L`` runs of ``T`` simulated threads (see
+    ``ref.fast_window_ref`` for the semantics and layouts).
+
+    ``m`` ``i32[L, R, T]``; ``flags`` ``bool[L, R, T, 4]``; ``terms``
+    ``f32[L, R, T, 4]``; ``caches`` four ``(tags, lru)`` pairs ``i32[L, T,
+    sets, ways]`` (L1 dTLB, STLB, PDE and PDPTE; the two walk caches have
+    one set); ``acc`` four ``f32[L, T]`` accumulators (total, walk, stall,
+    data memory); ``now0`` the first row's step; ``costs`` (llc_hit,
+    stlb_hit, cpu_work, data_stall_frac), read as float32.  The caches'
+    stamps are below ``now0`` (earlier steps).  Updates ``caches`` and
+    ``acc`` in place and returns ``(cum f32[L, R, 4, T], counts i32[L, R,
+    4, T])``."""
+    name = "fast_window"
+    caches = tuple(tuple(pair) for pair in caches)
+    acc = tuple(acc)
+    _check(len(caches) == 4 and all(len(p) == 2 for p in caches)
+           and len(acc) == 4, name, "takes four (tags, lru) pairs and four "
+           "accumulators")
+    flat = [t for pair in caches for t in pair]
+    dev = _same_device(name, m, flags, terms, *flat, *acc)
+    _check(m.dtype == torch.int32 and m.dim() == 3, name,
+           f"m must be int32 [L, R, T], got {m.dtype} {tuple(m.shape)}")
+    L, R, T = m.shape
+    _check(flags.dtype == torch.bool and flags.shape == (L, R, T, 4), name,
+           "flags must be bool [L, R, T, 4]")
+    _check(terms.dtype == torch.float32 and terms.shape == (L, R, T, 4), name,
+           "terms must be float32 [L, R, T, 4]")
+    for tags, lru in caches:
+        _check(tags.dtype == torch.int32 and lru.dtype == torch.int32
+               and tags.dim() == 4 and tags.shape == lru.shape
+               and tags.shape[:2] == (L, T) and tags.numel() > 0, name,
+               "each cache must be an int32 (tags, lru) pair [L, T, sets, ways]")
+    for tags, _ in caches[2:]:
+        _check(tags.shape[2] == 1, name, "the walk caches have one set")
+    for a in acc:
+        _check(a.dtype == torch.float32 and a.shape == (L, T), name,
+               "the accumulators must be float32 [L, T]")
+    for t in (m, flags, terms, *flat, *acc):
+        _check(t.is_contiguous(), name, "needs contiguous tensors")
+    _check(flags.data_ptr() % 4 == 0 and terms.data_ptr() % 16 == 0, name,
+           "flags and terms must start on 4- and 16-byte boundaries")
+    _check(0 <= int(radix_bits) <= 15, name, "radix_bits must be in [0, 15]")
+    # the kernel ranks a set's ways by ways * (lru + 2) + way in 32 bits
+    max_ways = max(tags.shape[3] for tags, _ in caches)
+    _check(0 <= int(now0) and (int(now0) + R + 3) * max_ways < 1 << 32, name,
+           f"step stamps up to {int(now0) + R} do not fit the kernel's "
+           f"32-bit way ranking at {max_ways} ways")
+    if dev.type == "cpu":
+        return ref.fast_window_ref(m, flags, terms, caches, acc, now0,
+                                   radix_bits, thp, costs)
+    return _fast_window.fast_window_cuda(m, flags, terms, caches, acc, now0,
+                                         radix_bits, thp, costs)
+
+
 def launch_counts() -> dict:
     """Calls that launched each kernel since the last
-    :func:`reset_launches` (one ``paged_attention`` or ``alloc_scan`` call
-    is one launch; ``pt_walk_rows_any`` counts as a ``pt_walk`` launch,
-    ``block_copy_pools`` as one ``block_copy`` launch whatever its number
-    of pairs)."""
+    :func:`reset_launches` (one ``paged_attention``, ``alloc_scan`` or
+    ``fast_window`` call is one launch; ``pt_walk_rows_any`` counts as a
+    ``pt_walk`` launch, ``block_copy_pools`` as one ``block_copy`` launch
+    whatever its number of pairs)."""
     return {"pt_walk": _pt_walk.launches, "block_copy": _block_copy.launches,
             "paged_attention": _paged_attention.launches,
-            "alloc_scan": _alloc_scan.launches}
+            "alloc_scan": _alloc_scan.launches,
+            "fast_window": _fast_window.launches}
 
 
 def reset_launches() -> None:
@@ -267,3 +326,4 @@ def reset_launches() -> None:
     _pt_walk.launches = 0
     _block_copy.launches = 0
     _paged_attention.launches = 0
+    _fast_window.launches = 0

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 NEG_INF = -1e30     # the mask score of the JAX kernel and oracle (finite)
@@ -600,3 +601,136 @@ def alloc_scan_cases():
         cases.append(dict(name=name, machine=machine, args=args,
                           slot_thread=slots, replays=n))
     return cases
+
+
+def _probe_sets(tags, lru, tag):
+    """(hit, flat entry index) of one ``tag`` per cache of ``[N, sets,
+    ways]``: the lowest matching way, else the lowest way of least lru
+    (``core/tlbs.py``'s rule, kept here so the plain version stands alone)."""
+    N, sets, ways = tags.shape
+    row = torch.arange(0, N * sets, sets, device=tag.device) + tag % sets
+    set_tags = tags.view(N * sets, ways).index_select(0, row)
+    set_lru = lru.view(N * sets, ways).index_select(0, row)
+    way_ids = torch.arange(ways, device=tag.device)
+    hit_way = torch.where(set_tags == tag[:, None], way_ids, ways).amin(1)
+    hit = hit_way < ways
+    victim = ((set_lru.long() + 1) * ways + way_ids).amin(1) % ways
+    return hit, row * ways + torch.where(hit, hit_way, victim)
+
+
+def _touch(tags, lru, pos, tag, now, on):
+    for arr, val in ((tags, tag), (lru, now)):
+        flat = arr.view(-1)
+        flat.index_copy_(0, pos, torch.where(on, val, flat.index_select(0, pos)))
+
+
+def fast_window_ref(m, flags, terms, caches, acc, now0, radix_bits, thp,
+                    costs):
+    """The fast window's inner scan, row by row (the plain version of
+    ``csrc/fast_window.cu``; the JAX package's ``_build_fast_window``
+    ``row``).
+
+    ``m i32[L, R, T]`` the rows' mapping granules; ``flags bool[L, R, T,
+    4]`` (active, leaf LLC hit, mid LLC hit, top LLC hit); ``terms f32[L,
+    R, T, 4]`` (leaf read, mid read on a PDE miss, top read on a full
+    walk, data cost); ``caches`` the (tags, lru) pairs ``i32[L, T, sets,
+    ways]`` of the L1 dTLB, STLB, PDE and PDPTE caches; ``acc`` the f32
+    ``[L, T]`` accumulators of total, walk, stall and data-memory cycles;
+    row r is stamped ``now0 + r``; ``costs`` (llc_hit, stlb_hit, cpu_work,
+    data_stall_frac).  The caches and ``acc`` are updated in place.
+    Returns ``(cum f32[L, R, 4, T], counts i32[L, R, 4, T])``: after each
+    row, the four accumulators and the counts of L1 hits, STLB hits, walks
+    and walk reads since the call, per thread."""
+    L, R, T = m.shape
+    N = L * T
+    llc_hit, stlb_hit, cpu_work, frac = (float(np.float32(c)) for c in costs)
+    views = [(t.view(N, *t.shape[2:]), r.view(N, *r.shape[2:]))
+             for t, r in caches]
+    (l1, l1r), (stlb, stlbr), (pde, pder), (pdpte, pdpter) = views
+    ct, cwk, cst, cdm = (a.view(N) for a in acc)
+    cum = torch.empty((L, R, 4, T), dtype=torch.float32, device=m.device)
+    counts = torch.empty((L, R, 4, T), dtype=torch.int32, device=m.device)
+    cnt = torch.zeros((4, N), dtype=torch.int32, device=m.device)
+    for r in range(R):
+        now = int(now0) + r
+        m_r = m[:, r].reshape(N)
+        act, leaf_llc, up1, up2 = flags[:, r].reshape(N, 4).unbind(1)
+        lread, mread, tread, dcost = terms[:, r].reshape(N, 4).unbind(1)
+        leaf, mid = m_r >> radix_bits, m_r >> (2 * radix_bits)
+        hit1, k1 = _probe_sets(l1, l1r, m_r)
+        hit2, k2 = _probe_sets(stlb, stlbr, m_r)
+        pde_hit, k3 = _probe_sets(pde, pder, leaf)
+        pdpte_hit, k4 = _probe_sets(pdpte, pdpter, mid)
+        walkn = act & ~hit1 & ~hit2
+        mid_read = torch.where(pde_hit, 0.0, mread)
+        full = ~pde_hit & ~pdpte_hit
+        top_read = torch.where(full & (not thp), tread, 0.0)
+        root_read = torch.where(full, llc_hit, 0.0)
+        walk_cost = torch.where(walkn, lread + mid_read + top_read + root_read,
+                                0.0)
+        reads = (~leaf_llc).int() + (~pde_hit & ~up1).int() \
+            + (full & ~up2 & (not thp)).int()
+        walk_reads = torch.where(walkn, reads, 0)
+        tlb_penalty = torch.where(act & ~hit1, stlb_hit, 0.0)
+        stall = walk_cost + frac * dcost
+        total = torch.where(act, cpu_work, 0.0) + tlb_penalty + stall
+        _touch(l1, l1r, k1, m_r, now, act)
+        _touch(stlb, stlbr, k2, m_r, now, act & ~hit1)
+        _touch(pde, pder, k3, leaf, now, walkn)
+        _touch(pdpte, pdpter, k4, mid, now, walkn)
+        ct += total
+        cwk += walk_cost
+        cst += stall
+        cdm += dcost
+        cnt += torch.stack([(act & hit1).int(), (act & ~hit1 & hit2).int(),
+                            walkn.int(), walk_reads.int()])
+        cum[:, r] = torch.stack([ct, cwk, cst, cdm]).view(4, L, T) \
+            .transpose(0, 1)
+        counts[:, r] = cnt.view(4, L, T).transpose(0, 1)
+    return cum, counts
+
+
+def fast_window_inputs(mc, L, R, T, seed, *, inactive=0.1, oom=False,
+                       device="cpu"):
+    """Drawn arguments of ``ops.fast_window`` on machine ``mc``'s cache
+    geometry: ``(m, flags, terms, caches, acc, kw)``.  Granules come from
+    a hot set of 16 (so every cache hits) and the whole map (so each
+    misses); cache tags sit in their sets, a fifth of the ways are empty,
+    and lru stamps share a few values (ties); ``inactive`` rows have
+    ``va = -1`` (data cost 0); ``oom`` makes every row inactive, as an
+    OOM-killed state does."""
+    g = torch.Generator().manual_seed(seed)
+    rb, n_map = mc.radix_bits, mc.n_map
+    hot = torch.randint(0, n_map, (16,), generator=g)
+
+    def granules(shape):
+        pick = torch.rand(shape, generator=g) < 0.7
+        return torch.where(pick, hot[torch.randint(0, 16, shape, generator=g)],
+                           torch.randint(0, n_map, shape, generator=g))
+
+    m = granules((L, R, T)).to(torch.int32)
+    p = torch.tensor([1 - inactive, 0.3, 0.35, 0.35])
+    flags = torch.rand((L, R, T, 4), generator=g) < p
+    if oom:
+        flags[..., 0] = False
+    terms = (torch.rand((L, R, T, 4), generator=g) * 600).to(torch.float32)
+    terms[..., 3] = torch.where(flags[..., 0], terms[..., 3], 0.0)
+    now0 = 1000 + seed
+    caches = []
+    for sets, ways, shift in ((mc.l1_tlb_sets, mc.l1_tlb_ways, 0),
+                              (mc.stlb_sets, mc.stlb_ways, 0),
+                              (1, mc.pde_pwc_entries, rb),
+                              (1, mc.pdpte_pwc_entries, 2 * rb)):
+        shape = (L, T, sets, ways)
+        cand = granules(shape) >> shift
+        tags = cand // sets * sets + torch.arange(sets)[:, None]
+        empty = torch.rand(shape, generator=g) < 0.2
+        tags = torch.where(empty, -1, tags).to(torch.int32)
+        lru = now0 - 1 - torch.randint(0, 6, shape, generator=g)
+        lru = torch.where(empty, -1, lru).to(torch.int32)
+        caches.append((tags.to(device), lru.to(device)))
+    acc = [(torch.rand((L, T), generator=g) * 1e6).to(torch.float32).to(device)
+           for _ in range(4)]
+    kw = dict(now0=now0, radix_bits=rb, thp=mc.page_order > 0,
+              costs=(40.0, 10.0, 60.0, 0.6))
+    return (m.to(device), flags.to(device), terms.to(device), caches, acc, kw)

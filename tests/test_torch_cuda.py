@@ -315,8 +315,9 @@ def test_alloc_scan_kernel_matches_plain_version(cuda_device):
 @pytest.mark.parametrize("policy", ["linux_default", "bhi_mig", "tpp",
                                     "nomad"])
 def test_simulator_on_the_card_matches_the_cpu_route(cuda_device, policy):
-    """The per-step engine on the card (alloc_scan launched once per step
-    with a fault, no device read inside the loop) == the same run on the
+    """The blocked engine and the per-step engine on the card (alloc_scan
+    launched once per step with a fault, fast_window once per fast
+    segment, no device read inside the loop) == the blocked run on the
     CPU, field for field."""
     import dataclasses
 
@@ -328,17 +329,29 @@ def test_simulator_on_the_card_matches_the_cpu_route(cuda_device, policy):
     pc = getattr(core, policy)()
     pc = dataclasses.replace(pc, autonuma_period=32, autonuma_budget=64)
     trace = core.workloads.kv_store(mc, 1 << 12, 256)
-    ops.reset_launches()
-    stepper = core.TieredMemSimulator(mc=mc, pc=pc).stepper(trace)
-    torch.cuda.set_sync_debug_mode("error")
-    try:
-        stepper.advance()
-    finally:
-        torch.cuda.set_sync_debug_mode(0)
-    card = stepper.result()
-    assert ops.launch_counts()["alloc_scan"] == \
-        int(core.fault_step_mask(trace, mc).sum())
     cpu = core.TieredMemSimulator(mc=mc, pc=pc, device="cpu").run(trace)
+    for engine in ("blocked", "per_step"):
+        ops.reset_launches()
+        runner = core.TieredMemSimulator(mc=mc, pc=pc, engine=engine,
+                                         debug=True).runner(trace)
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            runner.advance()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        card = runner.result()
+        counts = ops.launch_counts()
+        assert counts["alloc_scan"] == \
+            int(core.fault_step_mask(trace, mc).sum())
+        assert counts["fast_window"] == (
+            runner.fast_segments if engine == "blocked" else 0)
+        _assert_same_run(card, cpu)
+
+
+def _assert_same_run(card, cpu):
+    import dataclasses
+
+    import numpy as np
 
     def fields(state, prefix=""):
         for f in dataclasses.fields(state):
@@ -358,3 +371,43 @@ def test_simulator_on_the_card_matches_the_cpu_route(cuda_device, policy):
             np.testing.assert_array_equal(got, w, err_msg=name)
     for k, w in cpu.timeline.items():
         np.testing.assert_allclose(card.timeline[k], w, rtol=1e-5, err_msg=k)
+
+
+def _clone_fast_window_args(args, device):
+    m, flags, terms, caches, acc, kw = args
+    return (m.to(device), flags.to(device), terms.to(device),
+            [(t.to(device).clone(), r.to(device).clone()) for t, r in caches],
+            [a.to(device).clone() for a in acc], kw)
+
+
+@pytest.mark.cuda
+def test_fast_window_kernel_matches_plain_version(cuda_device):
+    """The fast window's inner scan (kernel N1) == its plain version,
+    exactly: the per-row accumulators and counts, and the caches and
+    accumulators it updates in place; segments of 1, 7, 64 and 128 rows,
+    T = 4 and 32, L = 1 and 3, benchmark_machine() and cxl_machine()
+    cache geometry, THP on and off, inactive rows and an OOM-killed
+    state."""
+    from repro_torch.core import config as cfg
+    ops.reset_launches()
+    calls = 0
+    for mc in (cfg.benchmark_machine(), cfg.cxl_machine(thp=True),
+               cfg.benchmark_machine(thp=True)):
+        for R, T, L, oom in ((1, 4, 1, False), (7, 32, 3, False),
+                             (64, 32, 1, False), (128, 4, 3, False),
+                             (64, 32, 1, True)):
+            args = ref.fast_window_inputs(mc, L, R, T, seed=calls, oom=oom)
+            want_args = _clone_fast_window_args(args, "cpu")
+            got_args = _clone_fast_window_args(args, cuda_device)
+            want = ops.fast_window(*want_args[:5], **want_args[5])
+            got = ops.fast_window(*got_args[:5], **got_args[5])
+            calls += 1
+            for g, w in zip(got, want):
+                assert g.dtype == w.dtype and torch.equal(g.cpu(), w)
+            for (gt, gl), (wt, wl) in zip(got_args[3], want_args[3]):
+                assert torch.equal(gt.cpu(), wt) and torch.equal(gl.cpu(), wl)
+            for g, w in zip(got_args[4], want_args[4]):
+                assert torch.equal(g.cpu(), w)
+            if oom:
+                assert int(got[1].abs().sum()) == 0
+    assert ops.launch_counts()["fast_window"] == calls

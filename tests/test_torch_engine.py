@@ -1,5 +1,6 @@
-"""The port's per-step engine (``repro_torch.core.TieredMemSimulator`` on
-the CPU) held to the JAX package's pure-Python oracle
+"""The port's per-step engine (``repro_torch.core.TieredMemSimulator(
+engine="per_step", debug=True)`` on the CPU) held to the JAX package's
+pure-Python oracle
 (``repro.core.ref.OracleSim``): ``EXACT_KEYS`` exact and ``CYCLE_KEYS`` to
 ``rtol=1e-5`` (f32 sums in another order), on the small machines, traces
 and policy bundles of tests/test_core_oracle.py and tests/test_ntier.py.
@@ -121,10 +122,15 @@ def unique_commits(monkeypatch):
     return calls
 
 
+def port_sim(mc, pc, **kw):
+    """The port's per-step engine on the CPU (an oracle path: ``debug``)."""
+    return tc.TieredMemSimulator(mc=to_port(mc), pc=to_port(pc), device="cpu",
+                                 engine="per_step", debug=True, **kw)
+
+
 def port_run(name):
     mc, pc, trace = case(name)
-    return tc.TieredMemSimulator(mc=to_port(mc), pc=to_port(pc),
-                                 device="cpu").run(to_port(trace))
+    return port_sim(mc, pc).run(to_port(trace))
 
 
 @pytest.mark.parametrize("name", CASE_NAMES)
@@ -144,9 +150,9 @@ def test_per_step_engine_matches_oracle(name, unique_commits):
 
 def test_stepping_in_pieces_equals_one_run():
     mc, pc, trace = case("segment free")
-    sim = tc.TieredMemSimulator(mc=to_port(mc), pc=to_port(pc), device="cpu")
+    sim = port_sim(mc, pc)
     whole = sim.run(to_port(trace))
-    stepper = sim.stepper(to_port(trace))
+    stepper = sim.runner(to_port(trace))
     for n in (1, 37, 62, 1000):
         stepper.advance(n)
     pieces = stepper.result()
@@ -167,9 +173,32 @@ def tsim_fields(state, prefix=""):
             yield prefix + f.name, np.asarray(v)
 
 
-def test_engines_not_ported_yet_raise():
-    for kw in (dict(engine="blocked"), dict(phase_b="sequential")):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            tc.TieredMemSimulator(device="cpu", **kw)
-    sim = tc.TieredMemSimulator(device="cpu", debug=True)
-    assert (sim.engine, sim.phase_b) == ("per_step", "batched")
+def test_reference_paths_need_debug():
+    """The reference's gate: the default is the blocked engine with the
+    batched fault path; the per-step engine and the sequential path are
+    oracle paths that raise ``ValueError`` without ``debug=True`` and run
+    with it."""
+    sim = tc.TieredMemSimulator(device="cpu")
+    assert (sim.engine, sim.phase_b, sim.debug) == ("blocked", "batched",
+                                                     False)
+    mc, pc, trace = case("oracle policy 0")
+    trace = to_port(trace)
+    trace = dataclasses.replace(trace, va=trace.va[:24],
+                                is_write=trace.is_write[:24],
+                                free_seg=trace.free_seg[:24],
+                                llc=trace.llc[:24])
+    runs = []
+    for kw in (dict(engine="per_step"), dict(phase_b="sequential"),
+               dict(engine="per_step", phase_b="sequential")):
+        with pytest.raises(ValueError, match="debug=True"):
+            tc.TieredMemSimulator(mc=to_port(mc), pc=to_port(pc),
+                                  device="cpu", **kw)
+        sim = tc.TieredMemSimulator(mc=to_port(mc), pc=to_port(pc),
+                                    device="cpu", debug=True, **kw)
+        assert isinstance(sim.runner(trace), tsim.Stepper) == \
+            (sim.engine == "per_step")
+        runs.append(sim.run(trace).summary())
+    assert runs[0] == runs[1] == runs[2]
+    for kw in (dict(engine="fast"), dict(phase_b="parallel")):
+        with pytest.raises(ValueError, match="unknown"):
+            tc.TieredMemSimulator(device="cpu", debug=True, **kw)

@@ -8,10 +8,10 @@ import numpy as np
 import pytest
 
 import repro.core as jc
-import repro_torch.core as tc
 
-from test_torch_engine import (CASE_NAMES, case, port_run, to_port,
-                               tsim_fields, unique_commits)  # noqa: F401
+from test_torch_engine import (CASE_NAMES, case, port_run, port_sim,
+                               to_port, tsim_fields,
+                               unique_commits)  # noqa: F401
 
 
 def assert_same_run(jax_res, port_res, label):
@@ -56,7 +56,7 @@ def test_resumed_run_matches_jax(name):
                       free_seg=np.full(trace.n_steps, -1, np.int32),
                       llc=trace.llc, seg_of_map=trace.seg_of_map, name="second")
     jsim = jc.TieredMemSimulator(mc=mc, pc=pc, engine="per_step", debug=True)
-    tsim = tc.TieredMemSimulator(mc=to_port(mc), pc=to_port(pc), device="cpu")
+    tsim = port_sim(mc, pc)
     want = jsim.run(second, state=jsim.run(trace).final_state)
     got = tsim.run(to_port(second), state=tsim.run(to_port(trace)).final_state)
     assert_same_run(want, got, f"{name}, resumed")

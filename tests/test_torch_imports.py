@@ -14,7 +14,8 @@ CORE = sorted(f"repro_torch.core.{f.stem}" for f in (PORT / "core").glob("*.py")
               if f.stem != "__init__")
 MODULES = ["repro_torch", "repro_torch.kernels.ops", "repro_torch.kernels.build",
            "repro_torch.kernels.paged_attention",
-           "repro_torch.kernels.alloc_scan", "repro_torch.kernels.sass",
+           "repro_torch.kernels.alloc_scan", "repro_torch.kernels.fast_window",
+           "repro_torch.kernels.sass",
            "repro_torch.memsys.tiered_kv", "repro_torch.serving.engine",
            "repro_torch.serving.serve_tiered", "repro_torch.configs",
            "repro_torch.configs.qwen2_5_14b", "repro_torch.core",

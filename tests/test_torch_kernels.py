@@ -436,6 +436,11 @@ def test_plain_versions_count_no_launches():
                    torch.ones((1, 4, 4), dtype=torch.bool),
                    torch.ones((1, 4), dtype=torch.bool), n_threads=4,
                    alloc_nodes=(0, 1, 2, 3), thp=False)
+    from repro_torch.core import config as cfg
+    from repro_torch.kernels import ref
+    args = ref.fast_window_inputs(cfg.MachineConfig(n_threads=4), 1, 3, 4, 0)
+    ops.fast_window(*args[:5], **args[5])
     assert ops.launch_counts() == {"pt_walk": 0, "block_copy": 0,
-                                   "paged_attention": 0, "alloc_scan": 0}
+                                   "paged_attention": 0, "alloc_scan": 0,
+                                   "fast_window": 0}
 

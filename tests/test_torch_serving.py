@@ -77,7 +77,8 @@ def run_both(radiant, n_hot, n_cold, n_seqs, max_seq, active, prompt, new,
     ops.reset_launches()
     pstats = pe.run(p_decode, max_ticks=500)
     assert ops.launch_counts() == {"pt_walk": 0, "block_copy": 0,
-                                   "paged_attention": 0, "alloc_scan": 0}            # CPU
+                                   "paged_attention": 0, "alloc_scan": 0,
+                                   "fast_window": 0}            # CPU
     assert dataclasses.asdict(pstats) == dataclasses.asdict(jstats)
     assert {r: q.state for r, q in pe.requests.items()} == \
         {r: q.state for r, q in je.requests.items()}

@@ -171,6 +171,32 @@ def test_tlb_lookup_and_update_break_ties_as_jax(sets, ways):
         np.testing.assert_array_equal(np.asarray(ji.lru), tt.lru.numpy())
 
 
+@pytest.mark.parametrize("sets,ways", [(4, 2), (1, 4), (16, 4)])
+def test_tlb_update_one_and_lookup_one_match_jax(sets, ways):
+    """The sequential fault path's one-thread hit test and touch-or-insert
+    (ties by index: the first matching way, else the first of least lru)."""
+    rng = np.random.default_rng(100 + sets * 10 + ways)
+    T, tag_hi = 5, 64
+    for trial in range(20):
+        tags, lru = _tlb_state(rng, T, sets, ways, tag_hi)
+        jt = jtlbs.TlbArray(tags=jnp.asarray(tags), lru=jnp.asarray(lru))
+        tt = ttlbs.TlbArray(tags=torch.as_tensor(tags.copy()),
+                            lru=torch.as_tensor(lru.copy()))
+        for _ in range(4):
+            t = int(rng.integers(0, T))
+            tag = int(rng.integers(0, tag_hi))
+            active = bool(rng.random() < 0.7)
+            now = int(rng.integers(0, 5))
+            assert bool(jtlbs.lookup_one(jt, t, jnp.int32(tag))) == bool(
+                ttlbs.lookup_one(tt, t, torch.tensor(tag, dtype=torch.int32)))
+            jt = jtlbs.update_one(jt, t, jnp.int32(tag), now,
+                                  jnp.asarray(active))
+            ttlbs.update_one(tt, t, torch.tensor(tag, dtype=torch.int32), now,
+                             torch.tensor(active))
+            np.testing.assert_array_equal(np.asarray(jt.tags), tt.tags.numpy())
+            np.testing.assert_array_equal(np.asarray(jt.lru), tt.lru.numpy())
+
+
 def test_tlb_victim_is_the_first_empty_then_oldest_way():
     """An all-empty set picks way 0; equal stamps pick the lowest way."""
     tags = torch.tensor([[[-1, -1, -1]], [[5, 7, 9]], [[5, -1, 9]]],
