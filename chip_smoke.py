@@ -422,38 +422,91 @@ def alloc_scan_phase(dev, gen_seed=8):
     return float(worst), paths, result
 
 
-def fast_window_bytes(mc, L, R, T) -> int:
-    """Bytes one ``fast_window`` launch must move, each once: its inputs
-    (granule, four flags, four terms per row and thread), the caches (tag
-    and lru) and the four accumulators read and written back, the per-row
-    accumulators and counts written."""
-    entries = (mc.l1_tlb_sets * mc.l1_tlb_ways + mc.stlb_sets * mc.stlb_ways
-               + mc.pde_pwc_entries + mc.pdpte_pwc_entries)
-    return (L * R * T * (4 + 4 + 16) + 2 * 2 * 4 * entries * L * T
-            + 2 * 4 * L * T * 4 + 2 * L * R * 4 * T * 4)
+def fast_window_bytes(args) -> int:
+    """Bytes one ``fast_window`` launch must move on these arguments, each
+    once: the trace rows and thresholds read; the placements it gathers
+    (each distinct entry once); the latency tables; of each cache, the
+    tags of the sets probed by the rows whose result depends on it (the L1
+    dTLB's active rows, the STLB's active rows that miss the L1, the walk
+    caches' walking rows), the stamps of the sets where such a probe
+    misses (to pick the victim), and each tag and stamp that changes,
+    written once (the chain replayed on the CPU with the plain version's
+    probe); the accumulators and the counters read and written; the
+    hotness counts it adds to (each distinct entry read and written); the
+    row counts read and written; ``cum`` written."""
+    (va, is_write, thr, oom, nodes, lat, caches, acc, counters, hot,
+     row_counts), kw = args
+    import torch
+    from repro_torch.kernels import ref
+    L, R, T = va.shape
+    n_map = nodes[0].shape[1]
+    rb, shift = kw["radix_bits"], kw["map_shift"]
+    m = torch.where(va >= 0, va >> shift, 0).clamp(0, n_map - 1).long()
+    active = (va >= 0) & ~oom[:, None, None]
+    lane = torch.arange(L, device=va.device)[:, None, None]
+
+    def distinct(idx, n, mask=None):
+        key = lane * n + idx.clamp(max=n - 1)
+        return int((key if mask is None else key[mask]).unique().numel())
+
+    gathered = sum(distinct(m >> k, t.shape[1])
+                   for k, t in zip((0, rb, 2 * rb, 3 * rb), nodes))
+    touched = distinct(m, n_map, active) + distinct(m, n_map,
+                                                    active & is_write)
+    # the chain on CPU copies: which sets each cache's rows need, and
+    # which entries change
+    N = L * T
+    state = [(t.cpu().reshape(N, *t.shape[2:]).clone(),
+              r.cpu().reshape(N, *r.shape[2:]).clone()) for t, r in caches]
+    before = [(t.clone(), r.clone()) for t, r in state]
+    probed, missed = [[] for _ in state], [[] for _ in state]
+    m_cpu, act_cpu = m.cpu().int(), active.cpu()
+    for r in range(R):
+        m_r, act = m_cpu[:, r].reshape(N), act_cpu[:, r].reshape(N)
+        tags = (m_r, m_r, m_r >> rb, m_r >> (2 * rb))
+        probes = [ref._probe_sets(c, s, tag) for (c, s), tag
+                  in zip(state, tags)]
+        (hit1, _), (hit2, _) = probes[:2]
+        walkn = act & ~hit1 & ~hit2
+        for c, ((hit, pos), on) in enumerate(zip(probes, (
+                act, act & ~hit1, walkn, walkn))):
+            ways = state[c][0].shape[2]
+            probed[c].append((pos // ways)[on])
+            missed[c].append((pos // ways)[on & ~hit])
+            ref._touch(*state[c], pos, tags[c], int(kw["now0"]) + r, on)
+    cache_bytes = 0
+    for c, ((t1, r1), (t0, r0)) in enumerate(zip(state, before)):
+        ways = t0.shape[2]
+        cache_bytes += 4 * ways * (torch.cat(probed[c]).unique().numel()
+                                   + torch.cat(missed[c]).unique().numel())
+        cache_bytes += 4 * int((t1 != t0).sum() + (r1 != r0).sum())
+    return (va.numel() * 5 + thr.numel() * 8 + L + 4 * gathered
+            + sum(t.numel() * 4 for t in lat) + cache_bytes
+            + 2 * 4 * (4 * L * T + 4 * L) + 2 * 4 * touched
+            + 2 * 4 * 3 * L * R + 4 * L * R * 4 * T)
 
 
 def fast_window_phase(dev, seed=0):
-    """[8] fast_window (N1), the fast window's inner scan, against its plain
-    version on the card, exactly: every output and the caches and
-    accumulators it updates in place; drawn segments of 1, 7, 64 and 128
-    rows at T = 4 and 32, one and three runs (L), on the cache geometry of
-    ``benchmark_machine()`` and ``cxl_machine()`` with THP off and on,
-    inactive rows throughout and an OOM-killed state (every row inactive)
-    on each machine.  Then timed at a quickstart run-phase segment's shape
-    (L = 1, 64 rows, T = 32, ``benchmark_machine()``) beside an empty
-    kernel, the plain version (eager, on the card) and the byte bound.
-    Returns (max abs err, timing)."""
+    """[8] fast_window (N1), an event-free segment in one launch, against
+    its plain version on the card, exactly: ``cum`` and everything it
+    updates in place (caches, accumulators, counters, hotness counts, row
+    counts); drawn segments of 1, 7, 64, 128 and 256 rows at T = 4 and 32,
+    one and three runs (L), on ``benchmark_machine()`` and
+    ``cxl_machine()`` with THP off and on, inactive rows throughout and an
+    OOM-killed state (every row inactive) on each machine.  Then timed at
+    a quickstart run-phase segment's shape (L = 1, 64 rows, T = 32,
+    ``benchmark_machine()``) beside an empty kernel, the plain version
+    (eager, on the card) and the byte bound, and at 1 and 128 rows for
+    the per-row slope.  Returns (max abs err, timing)."""
     import torch
     from repro_torch.core import config as cfg
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import pt_walk as pt_walk_mod
 
-    def clone(args, device):
-        m, flags, terms, caches, acc, kw = args
-        return (m.to(device), flags.to(device), terms.to(device),
-                [(t.to(device).clone(), r.to(device).clone())
-                 for t, r in caches], [a.to(device).clone() for a in acc], kw)
+    def updated(args):
+        (_, _, _, _, _, _, caches, acc, counters, hot, row_counts) = args
+        return ([t for pair in caches for t in pair] + list(acc)
+                + list(counters) + list(hot) + list(row_counts))
 
     machines = [(f"{fn}(thp={thp})", getattr(cfg, fn)(thp=thp))
                 for fn in ("benchmark_machine", "cxl_machine")
@@ -461,59 +514,58 @@ def fast_window_phase(dev, seed=0):
     worst, n_cases = 0.0, 0
     ops.reset_launches()
     for what, mc in machines:
-        shapes = [(R, T, 3 if R in (7, 128) else 1, False)
-                  for R in (1, 7, 64, 128) for T in (4, 32)]
+        shapes = [(R, T, 3 if R in (7, 128, 256) else 1, False)
+                  for R in (1, 7, 64, 128, 256) for T in (4, 32)]
         for R, T, L, oom in shapes + [(64, 32, 1, True)]:
-            args = ref.fast_window_inputs(mc, L, R, T, seed + n_cases, oom=oom)
-            want_args, got_args = clone(args, "cpu"), clone(args, dev)
-            want = ops.fast_window(*want_args[:5], **want_args[5])
-            got = ops.fast_window(*got_args[:5], **got_args[5])
+            case = seed + n_cases
+            want_args, kw = ref.fast_window_inputs(mc, L, R, T, case, oom=oom)
+            got_args, _ = ref.fast_window_inputs(mc, L, R, T, case, oom=oom,
+                                                 device=dev)
+            want = ops.fast_window(*want_args, **kw)
+            got = ops.fast_window(*got_args, **kw)
             n_cases += 1
             label = f"fast_window {what} L={L} R={R} T={T} oom={oom}"
-            pairs = list(zip(got, want))
-            pairs += [(g, w) for gp, wp in zip(got_args[3], want_args[3])
-                      for g, w in zip(gp, wp)]
-            pairs += list(zip(got_args[4], want_args[4]))
-            for g, w in pairs:
+            for g, w in zip([got] + updated(got_args),
+                            [want] + updated(want_args)):
                 g = g.cpu()
                 check(g.dtype == w.dtype and torch.equal(g, w),
                       f"{label}: kernel != plain version")
                 worst = max(worst, float((g.double() - w.double()).abs().max()))
-            if oom:
-                check(int(got[1].abs().sum()) == 0, f"{label}: counted rows")
     check(ops.launch_counts()["fast_window"] == n_cases,
           "fast_window: launches != cases")
     log(f"[8] fast_window == plain version on {n_cases} drawn cases "
-        f"(segments of 1 to 128 rows, T = 4 and 32, L = 1 and 3, "
+        f"(segments of 1 to 256 rows, T = 4 and 32, L = 1 and 3, "
         f"benchmark_machine() and cxl_machine() with THP off and on, "
-        f"inactive rows, OOM-killed states): every output, cache and "
-        f"accumulator exact (max abs err {worst})")
+        f"inactive rows, OOM-killed states): cum and every cache, "
+        f"accumulator, counter, hotness count and row count exact (max abs "
+        f"err {worst})")
 
     mc = cfg.benchmark_machine()
     L, R, T = 1, 64, 32
-    m, flags, terms, caches, acc, kw = ref.fast_window_inputs(
-        mc, L, R, T, seed=99, device=dev)
+    args, kw = ref.fast_window_inputs(mc, L, R, T, seed=99, device=dev)
 
     def kernel():
-        ops.fast_window(m, flags, terms, caches, acc, **kw)
+        ops.fast_window(*args, **kw)
 
     def plain():
-        ref.fast_window_ref(m, flags, terms, caches, acc, **kw)
+        ref.fast_window_ref(*args, **kw)
 
-    cache_bytes = sum(t.numel() + r.numel() for t, r in caches) * 4
-    moved = fast_window_bytes(mc, L, R, T)
+    cache_bytes = sum(t.numel() + r.numel() for t, r in args[6]) * 4
+    moved = fast_window_bytes((args, kw))
     result = dict(ms=device_ms(kernel), call_ms=host_ms(kernel),
                   floor_ms=device_ms(lambda: pt_walk_mod.empty_cuda(dev)),
                   plain_ms=host_ms(plain, reps=3),
                   bound_ms=moved / HBM_BYTES_PER_S * 1e3, library_ms=None,
                   bytes=moved)
     # the same launch at 1 and 128 rows: the caches' load and write-back
-    # against the rows' serial chain
+    # and the launch against the rows' chain
     by_rows = {}
     for rows in (1, 128):
-        a = ref.fast_window_inputs(mc, L, rows, T, seed=99, device=dev)
-        by_rows[rows] = device_ms(lambda: ops.fast_window(*a[:5], **a[5]))
+        a, k = ref.fast_window_inputs(mc, L, rows, T, seed=99, device=dev)
+        by_rows[rows] = device_ms(lambda: ops.fast_window(*a, **k))
     per_row = (by_rows[128] - by_rows[1]) / 127
+    result.update(rows_1_ms=by_rows[1], rows_128_ms=by_rows[128],
+                  per_row_us=per_row * 1e3)
     log(f"[8] fast_window at a quickstart segment's shape (L=1, R=64, T=32, "
         f"benchmark_machine(), {cache_bytes} B of caches): kernel "
         f"{result['ms']:.7f} ms (eager call {result['call_ms']:.5f} ms), an "
@@ -667,10 +719,14 @@ def quickstart_phase():
             runner.advance(pop_windows)
         torch.cuda.synchronize()
         t2 = time.perf_counter()
+        before = dict(runner.host_s)
         with sync_error():
             runner.advance()
         torch.cuda.synchronize()
         t3 = time.perf_counter()
+        host = {k: runner.host_s[k] - before[k] for k in before}
+        ran = [op for win in runner.ops[pop_windows:] for op, _, _ in win]
+        segs, ticks = ran.count("fast"), ran.count("scan")
         counts = ops.launch_counts()
         replays[name] = (alloc_scan_mod.replays(), alloc_scan_mod.chunks)
         res = runner.result()
@@ -703,6 +759,15 @@ def quickstart_phase():
             f"({S / (t3 - t1):.1f} steps/s); set-up {t1 - t0:.2f} s, result "
             f"{t4 - t3:.2f} s; alloc_scan replayed {replays[name][0]} of "
             f"{replays[name][1]} chunks")
+        log(f"[9] {name.strip()}: run phase host time by segment kind "
+            f"(issuing the work; the loop never waits on the device): fast "
+            f"segments {host['fast']:.4f} s ({segs} launches, "
+            f"{host['fast'] / max(segs, 1) * 1e3:.4f} ms each), scan ticks "
+            f"{host['scan']:.4f} s ({ticks} ticks, "
+            f"{host['scan'] / max(ticks, 1) * 1e3:.3f} ms each), step spans "
+            f"{host['steps']:.4f} s; the rest of the run phase's "
+            f"{t3 - t2:.4f} s is waiting for the device and the loop itself "
+            f"({t3 - t2 - sum(host.values()):.4f} s)")
     return launches, replays
 
 
@@ -885,7 +950,7 @@ def steady_state_phase():
     from repro_torch.core import (TieredMemSimulator, benchmark_machine,
                                   bhi_mig, linux_default, workloads)
     from repro_torch.core.sim import DEFAULT_BLOCK
-    from repro_torch.kernels import ops
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels import pt_walk as pt_walk_mod
     mc = benchmark_machine()
     trace = workloads.kv_store(mc, 1 << 12, run_steps=2048, seed=10,
@@ -921,7 +986,8 @@ def steady_state_phase():
             f"the {prof['fast_window_recorded']} of its "
             f"{prof['fast_window'][0]} launches that the profiler recorded")
     floor = device_ms(lambda: pt_walk_mod.empty_cuda(torch.device("cuda")))
-    moved = fast_window_bytes(mc, 1, DEFAULT_BLOCK, mc.n_threads)
+    moved = fast_window_bytes(ref.fast_window_inputs(
+        mc, 1, DEFAULT_BLOCK, mc.n_threads, seed=99))
     log(f"[steady] an empty kernel {floor:.7f} ms (the floor of one launch); "
         f"fast_window's bytes bound at a full window ({DEFAULT_BLOCK} rows) "
         f"{moved / HBM_BYTES_PER_S * 1e3:.9f} ms ({moved} B)")
@@ -1545,8 +1611,8 @@ def main() -> int:
              "src/repro/core/alloc.py:201 (alloc_many's lax.scan body; no "
              "Pallas original)"),
             ("fast_window", window_t,
-             "src/repro/core/sim.py:1015 (_build_fast_window's row, the "
-             "inner lax.scan; no Pallas original)")):
+             "src/repro/core/sim.py:939-1113 (_build_fast_window but the "
+             "f32 row sums; no Pallas original)")):
         kernels.append(dict(
             name=name, route="cuda",
             source=f"src/repro_torch/kernels/csrc/{name}.cu",

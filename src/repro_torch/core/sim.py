@@ -52,6 +52,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import hashlib
+import time
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -1148,75 +1149,38 @@ def fast_window_tile(stepper: Stepper, s0: int, s1: int) -> None:
     """Steps ``s0..s1-1`` of ``stepper``'s run, an event-free segment (no
     free, no scan tick, no fault), as the reference's ``fast_window``.
 
-    Placements are constant over such a segment, so every gather,
-    Bernoulli draw and latency term is computed at once over ``[rows, T]``
-    (the reference's tile precompute, with ``Stepper.phase_a``'s site seeds
-    and thresholds); the TLB and page-walk-cache chain runs through the
-    rows in one ``ops.fast_window`` launch; the hotness counts are one
-    scatter-add each.  Mapped-ness needs no check: host-mapped is a subset
-    of device-mapped, so every active access hits a mapped page.  The
-    timeline rows are the kernel's per-row sums over the threads (the
-    same reduction as ``Stepper._record``) beside the segment's constant
-    columns."""
+    Placements are constant over such a segment, so one ``ops.fast_window``
+    launch does all of it: the gathers, Bernoulli draws (``Stepper``'s site
+    seeds and thresholds) and latency terms, the TLB and page-walk-cache
+    chain, the hotness counts and the counters.  Mapped-ness needs no
+    check: host-mapped is a subset of device-mapped, so every active access
+    hits a mapped page.  The timeline rows are the segment's constant
+    columns (``_record`` at ``s0``), to which the launch adds each row's
+    counts, and the per-row sums over the threads of the kernel's
+    accumulators (the same reduction as ``Stepper._record``)."""
     st, mc, cc = stepper.st, stepper.mc, stepper.cc
-    rb, R = mc.radix_bits, s1 - s0
-    read_lat, write_lat = stepper.tables.read, stepper.tables.write
-    va, w = stepper.va[s0:s1], stepper.is_write[s0:s1]
-    m = torch.where(va >= 0, va >> mc.map_shift, 0).clamp(0, mc.n_map - 1)
-    active = (va >= 0) & ~st.oom_killed
-    now0 = stepper.start + s0
-    now = torch.arange(now0, now0 + R, device=va.device)[:, None]
-    leaf_id, mid_id, top_id = m >> rb, m >> (2 * rb), m >> (3 * rb)
-
-    def gather(arr, idx):
-        return arr.index_select(0, idx.reshape(-1)).view(idx.shape)
-
-    leaf_n = gather(st.leaf_node, leaf_id)
-    mid_n = gather(st.mid_node, mid_id.clamp(max=st.mid_node.shape[0] - 1))
-    top_n = gather(st.top_node, top_id.clamp(max=st.top_node.shape[0] - 1))
-    data_n = gather(st.data_node, m)
-    # the four draws of sites 1-4 (leaf, mid, top, data) at once
-    draws = bern_hash(stepper.site_seeds[:, :, None], (
-        torch.stack([m, mid_id, top_id, m]), now, stepper.tid)) \
-        < stepper.thr[s0:s1].transpose(0, 1)
-    leaf_llc, up1_llc, up2_llc, data_llc = draws.unbind(0)
-    llc_hit = float(cc.llc_hit)
-    leaf_read = torch.where(leaf_llc, llc_hit, read_lat[leaf_n.long() + 1])
-    mid_read_miss = torch.where(up1_llc, llc_hit, read_lat[mid_n.long() + 1])
-    top_read_miss = torch.where(up2_llc, llc_hit, read_lat[top_n.long() + 1])
-    dl = data_n.long() + 1
-    mem_lat = torch.where(w, write_lat[dl], read_lat[dl])
-    data_cost = torch.where(active, torch.where(data_llc, llc_hit, mem_lat),
-                            0.0)
-
-    # the timeline's window constants: the state at the segment's start
     stepper._record(s0)
     tl_f, tl_i = stepper.tl_f32[s0:s1], stepper.tl_i32[s0:s1]
     tl_f[1:] = tl_f[0]
     tl_i[1:] = tl_i[0]
-
     cyc, c = st.cycles, st.counters
-    cum, counts = ops.fast_window(
-        m[None], torch.stack([active, leaf_llc, up1_llc, up2_llc], -1)[None],
-        torch.stack([leaf_read, mid_read_miss, top_read_miss, data_cost],
-                    -1)[None],
+    cum = ops.fast_window(
+        stepper.va[s0:s1][None], stepper.is_write[s0:s1][None],
+        stepper.thr[s0:s1].view(1, s1 - s0, 4), st.oom_killed.view(1),
+        [a[None] for a in (st.data_node, st.leaf_node, st.mid_node,
+                           st.top_node)],
+        (stepper.tables.read, stepper.tables.write),
         [(tlb.tags[None], tlb.lru[None]) for tlb in
          (st.l1_tlb, st.stlb, st.pde_pwc, st.pdpte_pwc)],
         [a[None] for a in (cyc.total, cyc.walk, cyc.stall, cyc.data_mem)],
-        now0=now0, radix_bits=rb, thp=mc.page_order > 0,
+        [x.view(1) for x in (c.l1_hits, c.stlb_hits, c.walks,
+                             c.walk_mem_reads)],
+        (st.access_recent[None], st.written_recent[None]),
+        [tl_i[:, k][None] for k in (7, 8, 4)],   # l1 hits, stlb hits, walks
+        now0=stepper.start + s0, map_shift=mc.map_shift,
+        radix_bits=mc.radix_bits, thp=mc.page_order > 0,
         costs=(cc.llc_hit, cc.stlb_hit, cc.cpu_work, cc.data_stall_frac))
     tl_f[:, :4] = cum[0].sum(-1)
-    counted = counts[0].sum(-1, dtype=I32)     # l1 hits, stlb hits, walks,
-    tl_i[:, 4] += counted[:, 2]                # walk reads since s0
-    tl_i[:, 7:9] += counted[:, :2]
-    c.l1_hits += counted[-1, 0]
-    c.stlb_hits += counted[-1, 1]
-    c.walks += counted[-1, 2]
-    c.walk_mem_reads += counted[-1, 3]
-    # per-row adds commute (integers), so one scatter-add for the tile
-    st.access_recent.index_add_(0, m.reshape(-1), active.reshape(-1).to(I32))
-    st.written_recent.index_add_(0, m.reshape(-1),
-                                 (active & w).reshape(-1).to(I32))
 
 
 class BlockedRunner:
@@ -1232,6 +1196,9 @@ class BlockedRunner:
     no-ops), so the kernel is launched once per non-empty fast segment
     (:attr:`fast_segments`).  :meth:`advance` runs windows, as
     ``Stepper.advance`` runs steps; the timeline comes out in step order.
+    :attr:`host_s` sums the host's seconds in each kind of segment (fast,
+    scan, steps): the time to issue its work, as the loop never waits on
+    the device.
     """
 
     def __init__(self, sim: "TieredMemSimulator", trace: Trace,
@@ -1244,6 +1211,7 @@ class BlockedRunner:
                                  self.block)
         self.ops = window_ops(self.plan, S)
         self.w = 0                          # windows done
+        self.host_s = dict.fromkeys(("fast", "scan", "steps"), 0.0)
 
     @property
     def fast_segments(self) -> int:
@@ -1262,6 +1230,7 @@ class BlockedRunner:
         hi = n_w if n_windows is None else min(self.w + int(n_windows), n_w)
         for win in self.ops[self.w:hi]:
             for op, a, b in win:
+                t0 = time.perf_counter()
                 if op == "fast":
                     fast_window_tile(stp, a, b)
                 elif op == "scan":
@@ -1269,6 +1238,7 @@ class BlockedRunner:
                 else:
                     for s in range(a, b):
                         stp.step(s)
+                self.host_s[op] += time.perf_counter() - t0
         self.w = hi
         stp.s = min(hi * self.block, stp.trace.n_steps)
         stp.st.step.fill_(stp.start + stp.s)

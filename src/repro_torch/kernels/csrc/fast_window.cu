@@ -1,59 +1,81 @@
-// The fast window's inner scan: the TLB and page-walk-cache chain of an
-// event-free segment of steps, one warp per (run, simulated thread).
+// An event-free segment of the time-blocked engine in one launch: the
+// segment's precompute, the TLB and page-walk-cache chain through its
+// rows, the cost terms and accumulators, the hotness counts and the
+// integer counters, one CTA of four warps per (run, simulated thread).
 //
-// No Pallas original: replaces the inner `lax.scan` of the JAX package's
-// src/repro/core/sim.py::_build_fast_window (its `row`, sim.py:1015-1059).
-// The tile's gathers, Bernoulli draws and latency terms are computed before
-// the launch (core/sim.py::fast_window_tile); this kernel threads what is
-// truly sequential through the segment's rows in order, per run l and
-// thread t:
-//   hit1, way1 = lookup(L1 dTLB, m)      hit2, way2 = lookup(STLB, m)
-//   pde_hit, pde_way = lookup(PDE PWC, m >> rb)
-//   pdpte_hit, pdpte_way = lookup(PDPTE PWC, m >> 2rb)
-//   walkn = act & !hit1 & !hit2
-//   mid = pde_hit ? 0 : mid_read_miss    full = !pde_hit & !pdpte_hit
-//   top = thp ? 0 : (full ? top_read_miss : 0)
-//   root = full ? llc_hit : 0
-//   walk_cost = walkn ? ((leaf_read + mid) + top) + root : 0
-//   walk_reads = walkn ? !leaf_llc + (!pde_hit & !up1_llc)
-//                        + (thp ? 0 : full & !up2_llc) : 0
-//   tlb_penalty = act & !hit1 ? stlb_hit : 0
-//   stall = walk_cost + stall_frac * data_cost
-//   total = ((act ? cpu_work : 0) + tlb_penalty) + stall
-//   touch-or-insert m in L1 (act), in STLB (act & !hit1), the PDE and
-//   PDPTE tags (walkn), each stamped now0 + row
+// No Pallas original: replaces the JAX package's
+// src/repro/core/sim.py::_build_fast_window, its tile precompute
+// (sim.py:980-1013), its inner lax.scan `row` (sim.py:1015-1062) and its
+// hotness scatter-adds (sim.py:1076-1082).  What stays outside is the
+// per-row f32 sums over threads (the timeline's cycle columns), taken by
+// the caller in the same reduction as the per-step engine's.  Per run l,
+// thread t and row r (step now = now0 + r), as the reference:
+//   m = clamp(va >= 0 ? va >> map_shift : 0, 0, n_map - 1)
+//   active = va >= 0 && !oom_killed
+//   leaf / mid / top LLC hit, data LLC hit = bern draws of sites 1-4 on
+//     (m, m >> 2rb, m >> 3rb, m; now; t) against the row's thresholds
+//   leaf_read = leaf_llc ? llc_hit : read[leaf_node[m >> rb] + 1], and
+//     the mid and top reads on a miss the same way; data_cost = active ?
+//     (data_llc ? llc_hit : (write ? write : read)[data_node[m] + 1]) : 0
+//   hit1 = L1 dTLB(m), hit2 = STLB(m), pde_hit = PDE(m >> rb),
+//     pdpte_hit = PDPTE(m >> 2rb); walkn = active & !hit1 & !hit2
+//   touch-or-insert m in L1 (active), in STLB (active & !hit1), the PDE
+//     and PDPTE tags (walkn), each stamped now
+//   walk_cost, walk_reads, tlb_penalty, stall, total as the reference;
 //   ct += total, cwk += walk_cost, cst += stall, cdm += data_cost
-//   l1 hits += act & hit1, stlb hits += act & !hit1 & hit2,
-//   walks += walkn, walk reads += walk_reads
-// A lookup hits at the lowest matching way; a miss picks the lowest way of
-// least lru (an empty way carries -1), as the reference's argmax/argmin.
-// Stamps must keep (now0 + R + 3) * ways below 2^32 (the wrapper checks).
-// Outputs per row and thread: the four f32 accumulators and the four
-// counts, cumulative from the launch ([L, R, 4, T] each); the caches and
-// the accumulators are updated in place.
+//   access_recent[m] += active, written_recent[m] += active & write
+//   counts: l1 hits (active & hit1), stlb hits (active & !hit1 & hit2),
+//     walks (walkn), walk reads
+// A lookup hits at the lowest matching way; a miss picks the lowest way
+// of least lru (an empty way carries -1), as the reference's
+// argmax/argmin.  Stamps must keep (now0 + R + 3) * ways below 2^32 (the
+// wrapper checks).  Outputs: cum [L, R, 4, T], the four accumulators
+// after each row; in place: the caches, the accumulators, the counters
+// (the segment's totals added), the hotness counts, and three [L, R]
+// row-count views (each row's l1 hits, stlb hits and walks since the
+// launch, summed over threads, added; atomics, integers, so exact).
 //
 // Exactness: every f32 operation is a separate round-to-nearest intrinsic
-// in the reference's order (no FMA contraction), so the kernel equals the
-// per-step engine bit for bit.
+// in the reference's order (no FMA contraction), the accumulators are
+// summed row after row, and the draws are the reference's uint32
+// wrap-around hash, so the kernel equals the per-step engine bit for bit.
 //
-// Bound: launch latency and the rows' serial chain.  A quickstart segment
-// (64 rows, T = 32, benchmark_machine()) moves 955,392 B (its inputs once,
-// the four caches of 32 threads and the accumulators read and written
-// once, the outputs), 0.29 us at 3.35 TB/s, below one launch.
+// Bound: launch latency and the caches' serial chain.  A quickstart
+// segment (64 rows, T = 32, benchmark_machine()) must move about 0.18 MB
+// (the trace rows, the gathered placements, the cache sets its rows probe
+// and the entries they change, the accumulators, the outputs), 0.05 us at
+// 3.35 TB/s, far below one launch; a
+// row of a chain is a few dependent latencies (a shared load, the key, a
+// warp minimum, a store) that one warp per scheduler cannot hide.
 //
-// Design.  The four caches of one thread (1,640 entries of tag and lru at
-// benchmark_machine(), 13,120 B) are loaded into the warp's shared memory
-// once per launch (16-byte loads where the layout allows) and written back
-// at its end.  A row compares the ways of each set across the warp's lanes
-// and takes hit and victim in one warp minimum of a key per way: the way
-// itself where its tag matches, else ways * (lru + 2) + way, so the least
-// key is the lowest matching way or, with none, the lowest way of least
-// lru (the wrapper bounds the stamps so that the key fits 32 bits); the
-// lane that holds the least key writes the entry.  The four probes are
-// independent, so their chains overlap.
-// The rows' inputs come 32 rows at a time, one row per lane, loaded a
-// chunk ahead, and each row's are shuffled to the whole warp.  Every lane
-// carries the same scalar chain.
+// Design.  Only the caches are truly serial; everything else of a row
+// hangs off its four hit bits.  So a CTA of 128 threads works through the
+// rows in chunks of 128 (one fixed size: any R, in one pass on the main
+// path's 64-row segments):
+//   prologue, one row per thread: the granule, flags and latency terms
+//     into shared memory, the hotness atomics; meanwhile cp.async stages
+//     the thread's four caches (13,120 B at benchmark_machine()) into
+//     shared memory, once per launch;
+//   chain, one warp per cache: warp 0 the L1 dTLB, warp 1 the STLB, warps
+//     2 and 3 the PDE and PDPTE caches.  A row is one probe: the set's
+//     ways one per lane, one warp minimum of a key per way (the way itself
+//     where its tag matches, else ways * (lru + 2) + way, so the least key
+//     is the lowest matching way or the lowest way of least lru), one
+//     owner write, one __syncwarp; the next row's set is computed beside
+//     it.  Warp 0 depends on nothing, warp 1 on hit1 (it updates on active
+//     & !hit1), warps 2 and 3 on walkn, which warp 1 records; a producer
+//     publishes its progress every kGroup rows (a release store to a
+//     shared flag), and a consumer probes ahead and waits (an acquire
+//     load) only when it needs a bit it has not seen, so the four chains
+//     overlap.  Each row records its hit bits and the entry it wrote;
+//   epilogue, one row per thread: the entries the chunk wrote go back to
+//     global memory, the cost terms come from the four hit bits, the
+//     counts by a block scan (four 16-bit fields of a 64-bit word), then
+//     the row-count atomics; four lanes take the f32 accumulators row
+//     after row, as exactness needs.
+// The set index is tag - (tag * magic >> shift) * sets with the host's
+// magic number (ref.set_magic): exact for every tag in [0, 2^31) and
+// every set count, without a division.
 #include <cuda_runtime.h>
 #include <limits.h>
 #include <stdint.h>
@@ -61,274 +83,439 @@
 namespace {
 
 constexpr int kWarp = 32;
+constexpr int kWarps = 4;                  // one per cache structure
+constexpr int kThreads = kWarps * kWarp;
+constexpr int kChunk = kThreads;           // rows per chunk: one a thread
+// Rows per hand-off between the chain's warps: a flag costs a release
+// store on the producer and an acquire round trip on the consumer, so a
+// group of 8 keeps both below a few cycles a row, while the pipeline's
+// fill (two groups: L1, then STLB, before the walk caches start) stays a
+// quarter of a 64-row segment.
+constexpr int kGroup = 8;
 constexpr unsigned kFull = 0xffffffffu;
 
-struct Cache {
-  int32_t* tags;       // this thread's [sets, ways] in global memory
-  int32_t* lru;
-  int32_t* s_tags;     // its copy in shared memory
-  int32_t* s_lru;
-  int sets;
-  int ways;
+__host__ __device__ constexpr uint32_t site_seed(uint32_t site) {
+  return 0x811C9DC5u + 0x1000193u * site;
+}
+constexpr uint32_t kMix0 = 0x9E3779B1u, kMix1 = 0x85EBCA77u,
+                   kMix2 = 0xC2B2AE3Du;
+
+struct Params {
+  const int32_t* va;           // [L, R, T]
+  const uint8_t* is_write;     // [L, R, T]
+  const int64_t* thr;          // [L, R, 4]
+  const uint8_t* oom;          // [L]
+  const int32_t* node[4];      // data, leaf, mid, top: [L, n]
+  const float* lat[2];         // read, write: [K]
+  int32_t* tags[4];            // L1, STLB, PDE, PDPTE: [L, T, sets, ways]
+  int32_t* lru[4];
+  float* acc[4];               // total, walk, stall, data: [L, T]
+  int32_t* counters[4];        // l1 hits, stlb hits, walks, reads: [L]
+  int32_t* hot[2];             // access, written: [L, n_map]
+  int32_t* rc[3];              // l1 hits, stlb hits, walks: [L, R] views
+  float* cum;                  // [L, R, 4, T]
+  int L, R, T, now0, map_shift, rb, thp;
+  int n_node[4];
+  int K;
+  int sets[4], ways[4];
+  unsigned magic[4];
+  int shift[4];
+  long long rc_sl, rc_sr;      // the row counts' strides
+  float llc_hit, stlb_hit, cpu_work, frac;
 };
 
-__device__ __forceinline__ void copy_ints(int32_t* dst, const int32_t* src,
-                                          int n, int lane) {
-  if (n % 4 == 0 && ((uintptr_t)dst | (uintptr_t)src) % 16 == 0) {
-    const int4* s4 = reinterpret_cast<const int4*>(src);
-    int4* d4 = reinterpret_cast<int4*>(dst);
-    for (int i = lane; i < n / 4; i += kWarp) d4[i] = s4[i];
+// ---- staging the caches ---------------------------------------------------
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+// dst is 16-byte aligned (the shared layout pads every array to 4 ints)
+__device__ __forceinline__ void stage(int32_t* dst, const int32_t* src, int n,
+                                      int tid) {
+  if (n % 4 == 0 && (uintptr_t)src % 16 == 0) {
+    for (int i = tid; i < n / 4; i += kThreads) cp_async16(dst + 4 * i, src + 4 * i);
   } else {
-    for (int i = lane; i < n; i += kWarp) dst[i] = src[i];
+    for (int i = tid; i < n; i += kThreads) cp_async4(dst + i, src + i);
   }
 }
 
-__device__ __forceinline__ void load(const Cache& c, int lane) {
-  copy_ints(c.s_tags, c.tags, c.sets * c.ways, lane);
-  copy_ints(c.s_lru, c.lru, c.sets * c.ways, lane);
+// ---- the prologue -------------------------------------------------------
+
+// bern's 24-bit multiplicative hash of (key, now, t) at one site
+__device__ __forceinline__ uint32_t hash24(uint32_t seed, int key,
+                                           uint32_t now, int t) {
+  uint32_t h = (seed ^ (uint32_t)key) * kMix0;
+  h = (h ^ now) * kMix1;
+  h = (h ^ (uint32_t)t) * kMix2;
+  return h >> 8;
 }
 
-__device__ __forceinline__ void store(const Cache& c, int lane) {
-  copy_ints(c.tags, c.s_tags, c.sets * c.ways, lane);
-  copy_ints(c.lru, c.s_lru, c.sets * c.ways, lane);
+__device__ __forceinline__ float node_lat(const float* table, int K,
+                                          int node) {
+  return __ldg(table + min(max(node + 1, 0), K - 1));
 }
 
-// A probe of `tag` in its set, which starts at entry `base` (see Design):
-// each lane keys its ways, and the least key over the warp is < ways on a
-// hit.  The one lane that holds it (keys are distinct) owns the entry.
-struct Probe {
-  int base, tag;
-  unsigned key;        // this lane's least key
-  int slot;            // its entry
-  bool mine;           // this lane holds the warp's least key
-  unsigned least;
-};
-
-__device__ __forceinline__ void key_way(const Cache& c, Probe& p, int w) {
-  if (w < c.ways) {
-    const int e = p.base + w;
-    const unsigned k = c.s_tags[e] == p.tag
-                           ? (unsigned)w
-                           : (unsigned)c.ways * (unsigned)(c.s_lru[e] + 2) + w;
-    if (k < p.key) {
-      p.key = k;
-      p.slot = e;
-    }
-  }
+__device__ __forceinline__ int node_of(const Params& p, int which, int l,
+                                       int page) {
+  const int n = p.n_node[which];
+  return __ldg(p.node[which] + (size_t)l * n + min(page, n - 1));
 }
 
-// The lane's first way (straight-line, so the four caches' loads issue
-// together); ways past the warp's width (none on the repository's
-// machines) in a loop.
-__device__ __forceinline__ Probe probe_first(const Cache& c, int base,
-                                             int tag, int lane) {
-  Probe p{base, tag, UINT_MAX, base, false, 0};
-  key_way(c, p, lane);
-  return p;
-}
-
-__device__ __forceinline__ void probe_rest(const Cache& c, Probe& p,
-                                           int lane) {
-#pragma unroll 1
-  for (int w = lane + kWarp; w < c.ways; w += kWarp) key_way(c, p, w);
-}
-
-__device__ __forceinline__ bool probe_hit(const Cache& c, Probe& p) {
-  p.least = __reduce_min_sync(kFull, p.key);
-  p.mine = p.key == p.least;
-  return p.least < (unsigned)c.ways;
-}
-
-// Touch-or-insert: the lane that holds the entry writes it.
-__device__ __forceinline__ void touch(const Cache& c, const Probe& p,
-                                      int now, bool on) {
-  if (on && p.mine) {
-    c.s_tags[p.slot] = p.tag;
-    c.s_lru[p.slot] = now;
-  }
-}
-
-// The first entry of `tag`'s set.
-__device__ __forceinline__ int set_base(int tag, int sets, int ways) {
-  return tag % sets * ways;
-}
-
-struct Row {                 // one row's inputs for one thread
+struct RowIn {
   int m;
-  int flags;                 // active, leaf / mid / top LLC hit: bytes 0-3
-  float4 x;                  // leaf read, mid and top read on a miss, data
+  int flags;      // bit 0 active, 1 leaf LLC hit, 2 mid LLC hit, 3 top LLC hit
+  float4 x;       // leaf read, mid and top read on a miss, data cost
 };
 
-__device__ __forceinline__ Row load_row(const int32_t* m_in,
-                                        const int32_t* flags_in,
-                                        const float4* terms_in, size_t idx,
-                                        bool live) {
-  Row row{0, 0, make_float4(0.f, 0.f, 0.f, 0.f)};
-  if (live) {
-    row.m = m_in[idx];
-    row.flags = flags_in[idx];
-    row.x = terms_in[idx];
+__device__ __forceinline__ RowIn row_inputs(const Params& p, int l, int t,
+                                            int r) {
+  const size_t idx = ((size_t)l * p.R + r) * p.T + t;
+  const int va = __ldg(p.va + idx);
+  const bool write = __ldg(p.is_write + idx);
+  const int n_map = p.n_node[0];
+  const int m = min(max(va >= 0 ? va >> p.map_shift : 0, 0), n_map - 1);
+  const bool act = va >= 0 && !__ldg(p.oom + l);
+  const int leaf = m >> p.rb, mid = m >> (2 * p.rb), top = m >> (3 * p.rb);
+  const int data_n = node_of(p, 0, l, m), leaf_n = node_of(p, 1, l, leaf),
+            mid_n = node_of(p, 2, l, mid), top_n = node_of(p, 3, l, top);
+  const uint32_t now = (uint32_t)(p.now0 + r);
+  const int64_t* thr = p.thr + ((size_t)l * p.R + r) * 4;
+  const bool leaf_llc = (int64_t)hash24(site_seed(1), m, now, t) < __ldg(thr);
+  const bool up1 = (int64_t)hash24(site_seed(2), mid, now, t) < __ldg(thr + 1);
+  const bool up2 = (int64_t)hash24(site_seed(3), top, now, t) < __ldg(thr + 2);
+  const bool data_llc =
+      (int64_t)hash24(site_seed(4), m, now, t) < __ldg(thr + 3);
+  const float* rd = p.lat[0];
+  const float mem = write ? node_lat(p.lat[1], p.K, data_n)
+                          : node_lat(rd, p.K, data_n);
+  RowIn in;
+  in.m = m;
+  in.flags = (int)act | (int)leaf_llc << 1 | (int)up1 << 2 | (int)up2 << 3;
+  in.x = make_float4(leaf_llc ? p.llc_hit : node_lat(rd, p.K, leaf_n),
+                     up1 ? p.llc_hit : node_lat(rd, p.K, mid_n),
+                     up2 ? p.llc_hit : node_lat(rd, p.K, top_n),
+                     act ? (data_llc ? p.llc_hit : mem) : 0.f);
+  if (act) {
+    const size_t h = (size_t)l * n_map + m;
+    atomicAdd(p.hot[0] + h, 1);
+    if (write) atomicAdd(p.hot[1] + h, 1);
   }
-  return row;
+  return in;
 }
 
-__device__ __forceinline__ Row shfl_row(const Row& row, int src) {
-  Row out;
-  out.m = __shfl_sync(kFull, row.m, src);
-  out.flags = __shfl_sync(kFull, row.flags, src);
-  out.x.x = __shfl_sync(kFull, row.x.x, src);
-  out.x.y = __shfl_sync(kFull, row.x.y, src);
-  out.x.z = __shfl_sync(kFull, row.x.z, src);
-  out.x.w = __shfl_sync(kFull, row.x.w, src);
-  return out;
+// ---- the chain ------------------------------------------------------------
+
+struct Shared {
+  int32_t m[kChunk];
+  float4 x[kChunk];
+  float sum[3][kChunk];             // total, walk cost, stall
+  unsigned long long warp_sum[kWarps];
+  // warp w's record of row r: bit 0 hit, bit 1 walkn (warp 1), and
+  // (entry + 1) << 2 where the row wrote its cache (else 0)
+  int32_t rec[kWarps][kChunk];
+  uint8_t flags[kChunk];
+  int carry[4];                     // counts of the chunks before
+  int progress[2];                  // rows published by warps 0 and 1
+};
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__global__ void fast_window_kernel(
-    const int32_t* __restrict__ m_in, const int32_t* __restrict__ flags_in,
-    const float4* __restrict__ terms_in, int32_t* l1_tags, int32_t* l1_lru,
-    int32_t* stlb_tags, int32_t* stlb_lru, int32_t* pde_tags,
-    int32_t* pde_lru, int32_t* pdpte_tags, int32_t* pdpte_lru, float* ct_io,
-    float* cwk_io, float* cst_io, float* cdm_io, float* cum_out,
-    int32_t* counts_out, int R, int T, int now0, int rb, int thp, int sets1,
-    int ways1, int sets2, int ways2, int e3, int e4, float llc_hit,
-    float stlb_hit, float cpu_work, float stall_frac) {
+// A producer's progress: a release store, so the rows' hit bits written
+// before it are seen by a consumer that acquires it.
+__device__ __forceinline__ void publish(int* flag, int rows) {
+  asm volatile("st.release.cta.shared.b32 [%0], %1;\n" ::"r"(shared_addr(flag)),
+               "r"(rows)
+               : "memory");
+}
+
+// Wait until the producer has published `need` rows; returns how many it
+// had (each lane acquired at least that many).
+__device__ __forceinline__ int wait_rows(const int* flag, int need) {
+  int v;
+  do {
+    int mine;
+    asm volatile("ld.acquire.cta.shared.b32 %0, [%1];\n"
+                 : "=r"(mine)
+                 : "r"(shared_addr(flag))
+                 : "memory");
+    v = __reduce_min_sync(kFull, mine);
+  } while (v < need);
+  return v;
+}
+
+__device__ __forceinline__ int padded(int n) { return (n + 3) & ~3; }
+
+// Cache c's tags and lru in shared memory, each padded to 4 ints, in the
+// order of the caches (computed, not stored, so that the compiler keeps
+// the shared address space).
+__device__ __forceinline__ int32_t* shared_tags(int32_t* smem,
+                                                const Params& p, int c) {
+  int off = 0;
+  for (int k = 0; k < c; ++k) off += 2 * padded(p.sets[k] * p.ways[k]);
+  return smem + off;
+}
+
+// One way's key: the way itself on a match, else ways * (lru + 2) + way
+// (both loads unconditional; a match keys below every lru key).
+__device__ __forceinline__ unsigned way_key(const int32_t* tags,
+                                            const int32_t* lru, int e, int w,
+                                            int ways, int tag) {
+  return min(tags[e] == tag ? (unsigned)w : UINT_MAX,
+             (unsigned)ways * (unsigned)(lru[e] + 2) + w);
+}
+
+// The first entry of `tag`'s set, without a division (ref.set_magic).
+template <bool kSets>
+__device__ __forceinline__ int set_base(int tag, int sets, int ways,
+                                        unsigned magic, int shift) {
+  if (!kSets) return 0;
+  const unsigned q =
+      (unsigned)(((unsigned long long)(unsigned)tag * magic) >> shift);
+  return (tag - (int)q * sets) * ways;
+}
+
+// Warp C runs cache C (0 L1 dTLB, 1 STLB, 2 PDE, 3 PDPTE) through the
+// chunk's n rows (see Design), one way a lane (the wrapper refuses more
+// than 32 ways; the repository's machines have at most 32).  The chain of
+// a row is the set's loads, the key, the warp minimum and the owner's
+// store; the next row's tag and set are computed beside it, and a
+// consumer reads its producer's bits only for the store (waiting only
+// when it has caught up).  Each row leaves its record for the epilogue,
+// which writes the touched entries back.
+template <int C>
+__device__ __forceinline__ void chain(const Params& p, Shared& s,
+                                      int32_t* smem, int lane, int n,
+                                      int now0) {
+  int32_t* tags = shared_tags(smem, p, C);
+  int32_t* lru = tags + padded(p.sets[C] * p.ways[C]);
+  constexpr bool kSets = C < 2;            // the walk caches have one set
+  const int ways = p.ways[C];
+  const int sets = kSets ? p.sets[C] : 1;
+  const unsigned magic = p.magic[C];
+  const int shift = p.shift[C];
+  const int tag_shift = C < 2 ? 0 : (C - 1) * p.rb;
+  int seen = 0;
+  int tag = s.m[0] >> tag_shift;
+  int base = set_base<kSets>(tag, sets, ways, magic, shift);
+  for (int r = 0; r < n; ++r) {
+    unsigned key = UINT_MAX;
+    int slot = base + lane;
+    if (lane < ways) key = way_key(tags, lru, slot, lane, ways, tag);
+    const int tag_next = s.m[min(r + 1, n - 1)] >> tag_shift;
+    const int base_next = set_base<kSets>(tag_next, sets, ways, magic, shift);
+    bool on;
+    if (C == 0) {
+      on = s.flags[r] & 1;
+    } else {
+      if (r >= seen) seen = wait_rows(&s.progress[C == 1 ? 0 : 1], r + 1);
+      on = C == 1 ? (s.flags[r] & 1) && !(s.rec[0][r] & 1)
+                  : (s.rec[1][r] >> 1) & 1;
+    }
+    const unsigned least = __reduce_min_sync(kFull, key);
+    const bool hit = least < (unsigned)ways;
+    const bool mine = key == least;
+    if (on && mine) {
+      tags[slot] = tag;
+      lru[slot] = now0 + r;
+    }
+    if (on ? mine : lane == 0)
+      s.rec[C][r] = (int)hit | (int)(C == 1 && on && !hit) << 1 |
+                    (on ? (slot + 1) << 2 : 0);
+    __syncwarp();
+    if (C < 2 && lane == 0 && ((r + 1) % kGroup == 0 || r + 1 == n))
+      publish(&s.progress[C], r + 1);
+    tag = tag_next;
+    base = base_next;
+  }
+}
+
+// ---- the kernel -----------------------------------------------------------
+
+__global__ void __launch_bounds__(kThreads)
+    fast_window_kernel(const Params p) {
   extern __shared__ __align__(16) int32_t smem[];
-  const int lane = threadIdx.x;
-  const int run = blockIdx.x;            // l * T + t
-  const int l = run / T, t = run % T;
-  const int n1 = sets1 * ways1, n2 = sets2 * ways2;
-  Cache c1{l1_tags + (size_t)run * n1, l1_lru + (size_t)run * n1, smem,
-           smem + n1, sets1, ways1};
-  Cache c2{stlb_tags + (size_t)run * n2, stlb_lru + (size_t)run * n2,
-           smem + 2 * n1, smem + 2 * n1 + n2, sets2, ways2};
-  int32_t* s3 = smem + 2 * (n1 + n2);
-  Cache c3{pde_tags + (size_t)run * e3, pde_lru + (size_t)run * e3, s3,
-           s3 + e3, 1, e3};
-  Cache c4{pdpte_tags + (size_t)run * e4, pdpte_lru + (size_t)run * e4,
-           s3 + 2 * e3, s3 + 2 * e3 + e4, 1, e4};
-  // row r of (l, t) is at idx + r * T; lane k holds row r0 + k of a chunk
-  const size_t idx = (size_t)l * R * T + t;
-  Row next = load_row(m_in, flags_in, terms_in, idx + (size_t)lane * T,
-                      lane < R);
-  load(c1, lane);
-  load(c2, lane);
-  load(c3, lane);
-  load(c4, lane);
-  float ct = ct_io[run], cwk = cwk_io[run], cst = cst_io[run],
-        cdm = cdm_io[run];
-  int n_l1 = 0, n_stlb = 0, n_walk = 0, n_reads = 0;
-  __syncwarp();
+  __shared__ Shared s;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int run = blockIdx.x, l = run / p.T, t = run % p.T;
 
-  Row chunk = next;
-  for (int r = 0; r < R; ++r) {
-    if ((r & (kWarp - 1)) == 0) {
-      chunk = next;
-      const int ahead = r + kWarp + lane;
-      next = load_row(m_in, flags_in, terms_in, idx + (size_t)ahead * T,
-                      ahead < R);
-    }
-    const Row row = shfl_row(chunk, r & (kWarp - 1));
-    const int m = row.m;
-    const float4 x = row.x;
-    const bool act = row.flags & 0xff, leaf_llc = (row.flags >> 8) & 0xff,
-               up1 = (row.flags >> 16) & 0xff, up2 = (row.flags >> 24) & 0xff;
-    const int leaf = m >> rb, mid = m >> (2 * rb);
-    Probe p1 =
-        probe_first(c1, set_base(m, sets1, ways1), m, lane);
-    Probe p2 =
-        probe_first(c2, set_base(m, sets2, ways2), m, lane);
-    Probe p3 = probe_first(c3, 0, leaf, lane);
-    Probe p4 = probe_first(c4, 0, mid, lane);
-    probe_rest(c1, p1, lane);
-    probe_rest(c2, p2, lane);
-    probe_rest(c3, p3, lane);
-    probe_rest(c4, p4, lane);
-    const bool hit1 = probe_hit(c1, p1), hit2 = probe_hit(c2, p2),
-               pde_hit = probe_hit(c3, p3), pdpte_hit = probe_hit(c4, p4);
-    const bool walkn = act && !hit1 && !hit2;
-    const bool full = !pde_hit && !pdpte_hit;
-    const float mid_read = pde_hit ? 0.f : x.y;
-    const float top_read = (!thp && full) ? x.z : 0.f;
-    const float root_read = full ? llc_hit : 0.f;
-    const float walk_cost =
-        walkn ? __fadd_rn(__fadd_rn(__fadd_rn(x.x, mid_read), top_read),
-                          root_read)
-              : 0.f;
-    const int reads = walkn ? (int)!leaf_llc + (int)(!pde_hit && !up1) +
-                                  (int)(!thp && full && !up2)
-                            : 0;
-    const float tlb_penalty = (act && !hit1) ? stlb_hit : 0.f;
-    const float stall = __fadd_rn(walk_cost, __fmul_rn(stall_frac, x.w));
-    const float total =
-        __fadd_rn(__fadd_rn(act ? cpu_work : 0.f, tlb_penalty), stall);
-    const int now = now0 + r;
-    __syncwarp();                    // every lane has read the sets
-    touch(c1, p1, now, act);
-    touch(c2, p2, now, act && !hit1);
-    touch(c3, p3, now, walkn);
-    touch(c4, p4, now, walkn);
-    __syncwarp();                    // the writes are seen by the next row
-    ct = __fadd_rn(ct, total);
-    cwk = __fadd_rn(cwk, walk_cost);
-    cst = __fadd_rn(cst, stall);
-    cdm = __fadd_rn(cdm, x.w);
-    n_l1 += act && hit1;
-    n_stlb += act && !hit1 && hit2;
-    n_walk += walkn;
-    n_reads += reads;
-    // lanes 0-3 write the accumulators, lanes 4-7 the counts
-    const size_t o = ((size_t)(l * R + r) * 4 + (lane & 3)) * T + t;
-    if (lane < 4) {
-      cum_out[o] = lane == 0 ? ct : lane == 1 ? cwk : lane == 2 ? cst : cdm;
-    } else if (lane < 8) {
-      const int k = lane & 3;
-      counts_out[o] = k == 0 ? n_l1 : k == 1 ? n_stlb : k == 2 ? n_walk
-                                                               : n_reads;
-    }
+  for (int c = 0; c < 4; ++c) {
+    const int n = p.sets[c] * p.ways[c];
+    int32_t* tags = shared_tags(smem, p, c);
+    stage(tags, p.tags[c] + (size_t)run * n, n, tid);
+    stage(tags + padded(n), p.lru[c] + (size_t)run * n, n, tid);
   }
-  __syncwarp();
-  store(c1, lane);
-  store(c2, lane);
-  store(c3, lane);
-  store(c4, lane);
-  if (lane == 0) {
-    ct_io[run] = ct;
-    cwk_io[run] = cwk;
-    cst_io[run] = cst;
-    cdm_io[run] = cdm;
+  asm volatile("cp.async.commit_group;\n" ::);
+  if (tid < 4) s.carry[tid] = 0;
+  float acc = tid < 4 ? p.acc[tid][run] : 0.f;   // lane k of warp 0: acc k
+
+  for (int r0 = 0; r0 < p.R; r0 += kChunk) {
+    const int n = min(kChunk, p.R - r0);
+    if (tid < n) {
+      const RowIn in = row_inputs(p, l, t, r0 + tid);
+      s.m[tid] = in.m;
+      s.flags[tid] = (uint8_t)in.flags;
+      s.x[tid] = in.x;
+    }
+    if (tid < 2) s.progress[tid] = 0;
+    asm volatile("cp.async.wait_all;\n" ::: "memory");
+    __syncthreads();
+
+    switch (warp) {
+      case 0: chain<0>(p, s, smem, lane, n, p.now0 + r0); break;
+      case 1: chain<1>(p, s, smem, lane, n, p.now0 + r0); break;
+      case 2: chain<2>(p, s, smem, lane, n, p.now0 + r0); break;
+      default: chain<3>(p, s, smem, lane, n, p.now0 + r0); break;
+    }
+    __syncthreads();
+
+    // epilogue: one row a thread
+    unsigned long long inc = 0;
+    if (tid < n) {
+      const int f = s.flags[tid];
+      const bool act = f & 1, leaf_llc = f & 2, up1 = f & 4, up2 = f & 8;
+      const bool hit1 = s.rec[0][tid] & 1, hit2 = s.rec[1][tid] & 1,
+                 walkn = s.rec[1][tid] & 2, pde_hit = s.rec[2][tid] & 1,
+                 pdpte_hit = s.rec[3][tid] & 1;
+      for (int c = 0; c < 4; ++c) {   // write back the entries it touched
+        const int e = (s.rec[c][tid] >> 2) - 1;
+        if (e >= 0) {
+          const int32_t* tags = shared_tags(smem, p, c);
+          const size_t g = (size_t)run * p.sets[c] * p.ways[c] + e;
+          p.tags[c][g] = tags[e];
+          p.lru[c][g] = tags[padded(p.sets[c] * p.ways[c]) + e];
+        }
+      }
+      const float4 x = s.x[tid];
+      const bool full = !pde_hit && !pdpte_hit;
+      const float mid_read = pde_hit ? 0.f : x.y;
+      const float top_read = (!p.thp && full) ? x.z : 0.f;
+      const float root_read = full ? p.llc_hit : 0.f;
+      const float walk_cost =
+          walkn ? __fadd_rn(__fadd_rn(__fadd_rn(x.x, mid_read), top_read),
+                            root_read)
+                : 0.f;
+      const int reads = walkn ? (int)!leaf_llc + (int)(!pde_hit && !up1) +
+                                    (int)(!p.thp && full && !up2)
+                              : 0;
+      const float tlb_penalty = (act && !hit1) ? p.stlb_hit : 0.f;
+      const float stall = __fadd_rn(walk_cost, __fmul_rn(p.frac, x.w));
+      s.sum[0][tid] =
+          __fadd_rn(__fadd_rn(act ? p.cpu_work : 0.f, tlb_penalty), stall);
+      s.sum[1][tid] = walk_cost;
+      s.sum[2][tid] = stall;
+      inc = (unsigned long long)(act && hit1) |
+            (unsigned long long)(act && !hit1 && hit2) << 16 |
+            (unsigned long long)walkn << 32 |
+            (unsigned long long)reads << 48;
+    }
+    // inclusive scan of the chunk's counts (each field below 2^16)
+    for (int o = 1; o < kWarp; o <<= 1) {
+      const unsigned long long u = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += u;
+    }
+    if (lane == kWarp - 1) s.warp_sum[warp] = inc;
+    __syncthreads();
+    for (int w = 0; w < warp; ++w) inc += s.warp_sum[w];
+    int cnt[4];
+    for (int k = 0; k < 4; ++k)
+      cnt[k] = s.carry[k] + (int)((inc >> (16 * k)) & 0xffff);
+    if (tid < n) {
+      const size_t o = (size_t)l * p.rc_sl + (size_t)(r0 + tid) * p.rc_sr;
+      for (int k = 0; k < 3; ++k)
+        if (cnt[k]) atomicAdd(p.rc[k] + o, cnt[k]);
+    }
+    if (tid < 4) {                  // the accumulators, row after row
+      const float* x = tid < 3 ? s.sum[tid] : nullptr;
+      float* out = p.cum + ((size_t)l * p.R + r0) * 4 * p.T + tid * p.T + t;
+      for (int r = 0; r < n; ++r) {
+        acc = __fadd_rn(acc, tid < 3 ? x[r] : s.x[r].w);
+        out[(size_t)r * 4 * p.T] = acc;
+      }
+    }
+    __syncthreads();
+    if (tid == n - 1)
+      for (int k = 0; k < 4; ++k) s.carry[k] = cnt[k];
+  }
+  __syncthreads();
+  if (tid < 4) {                    // the caches were written through
+    p.acc[tid][run] = acc;
+    if (s.carry[tid]) atomicAdd(p.counters[tid] + l, s.carry[tid]);
   }
 }
 
 }  // namespace
 
-extern "C" int fast_window_launch(
-    const void* m, const void* flags, const void* terms, void* l1_tags,
-    void* l1_lru, void* stlb_tags, void* stlb_lru, void* pde_tags,
-    void* pde_lru, void* pdpte_tags, void* pdpte_lru, void* ct, void* cwk,
-    void* cst, void* cdm, void* cum, void* counts, int L, int R, int T,
-    int now0, int rb, int thp, int sets1, int ways1, int sets2, int ways2,
-    int e3, int e4, float llc_hit, float stlb_hit, float cpu_work,
-    float stall_frac, void* stream) {
-  if (L == 0 || T == 0) return 0;
-  if (L < 0 || T < 0 || R < 0 || sets1 < 1 || ways1 < 1 || sets2 < 1 ||
-      ways2 < 1 || e3 < 1 || e4 < 1 || rb < 0 || rb > 15)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      2 * sizeof(int32_t) *
-      ((size_t)sets1 * ways1 + (size_t)sets2 * ways2 + e3 + e4);
-  if (smem > 48 * 1024) {
+// ptrs: va, is_write, thr, oom_killed, data / leaf / mid / top nodes, read
+// and write latencies, the four caches' tags then their lru, the four
+// accumulators, the four counters, access and written counts, the three
+// row counts, cum (32).  ints: L, R, T, now0, map_shift, radix_bits, thp,
+// the four placements' lengths, K, the caches' sets, ways, magic numbers
+// and shifts, the row counts' two strides (30).  costs: llc_hit,
+// stlb_hit, cpu_work, data_stall_frac.
+extern "C" int fast_window_launch(const uint64_t* ptrs, const long long* ints,
+                                  const float* costs, void* stream) {
+  Params p;
+  int i = 0;
+  p.va = (const int32_t*)ptrs[i++];
+  p.is_write = (const uint8_t*)ptrs[i++];
+  p.thr = (const int64_t*)ptrs[i++];
+  p.oom = (const uint8_t*)ptrs[i++];
+  for (int k = 0; k < 4; ++k) p.node[k] = (const int32_t*)ptrs[i++];
+  for (int k = 0; k < 2; ++k) p.lat[k] = (const float*)ptrs[i++];
+  for (int k = 0; k < 4; ++k) p.tags[k] = (int32_t*)ptrs[i++];
+  for (int k = 0; k < 4; ++k) p.lru[k] = (int32_t*)ptrs[i++];
+  for (int k = 0; k < 4; ++k) p.acc[k] = (float*)ptrs[i++];
+  for (int k = 0; k < 4; ++k) p.counters[k] = (int32_t*)ptrs[i++];
+  for (int k = 0; k < 2; ++k) p.hot[k] = (int32_t*)ptrs[i++];
+  for (int k = 0; k < 3; ++k) p.rc[k] = (int32_t*)ptrs[i++];
+  p.cum = (float*)ptrs[i++];
+  int j = 0;
+  p.L = (int)ints[j++];
+  p.R = (int)ints[j++];
+  p.T = (int)ints[j++];
+  p.now0 = (int)ints[j++];
+  p.map_shift = (int)ints[j++];
+  p.rb = (int)ints[j++];
+  p.thp = (int)ints[j++];
+  for (int k = 0; k < 4; ++k) p.n_node[k] = (int)ints[j++];
+  p.K = (int)ints[j++];
+  for (int k = 0; k < 4; ++k) p.sets[k] = (int)ints[j++];
+  for (int k = 0; k < 4; ++k) p.ways[k] = (int)ints[j++];
+  for (int k = 0; k < 4; ++k) p.magic[k] = (unsigned)ints[j++];
+  for (int k = 0; k < 4; ++k) p.shift[k] = (int)ints[j++];
+  p.rc_sl = ints[j++];
+  p.rc_sr = ints[j++];
+  p.llc_hit = costs[0];
+  p.stlb_hit = costs[1];
+  p.cpu_work = costs[2];
+  p.frac = costs[3];
+  if (p.L == 0 || p.T == 0 || p.R == 0) return 0;
+  bool bad = p.L < 0 || p.T < 0 || p.R < 0 || p.K < 1 || p.rb < 0 ||
+             p.rb > 15 || p.map_shift < 0 || p.map_shift > 30;
+  size_t smem = 0;
+  for (int k = 0; k < 4; ++k) {
+    bad |= p.n_node[k] < 1 || p.sets[k] < 1 || p.ways[k] < 1 ||
+           p.ways[k] > kWarp;
+    smem += 2 * sizeof(int32_t) * (((size_t)p.sets[k] * p.ways[k] + 3) & ~3);
+  }
+  if (bad) return (int)cudaErrorInvalidValue;
+  if (smem > 32 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fast_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  fast_window_kernel<<<L * T, kWarp, smem, (cudaStream_t)stream>>>(
-      (const int32_t*)m, (const int32_t*)flags, (const float4*)terms,
-      (int32_t*)l1_tags, (int32_t*)l1_lru, (int32_t*)stlb_tags,
-      (int32_t*)stlb_lru, (int32_t*)pde_tags, (int32_t*)pde_lru,
-      (int32_t*)pdpte_tags, (int32_t*)pdpte_lru, (float*)ct, (float*)cwk,
-      (float*)cst, (float*)cdm, (float*)cum, (int32_t*)counts, R, T, now0, rb,
-      thp, sets1, ways1, sets2, ways2, e3, e4, llc_hit, stlb_hit, cpu_work,
-      stall_frac);
+  fast_window_kernel<<<p.L * p.T, kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -250,36 +250,55 @@ def alloc_scan(node_free, node_reclaimable, interleave_ptr, oom_killed, wm,
                                        bool(thp))
 
 
-def fast_window(m, flags, terms, caches, acc, *, now0: int, radix_bits: int,
-                thp: bool, costs):
-    """The fast window's inner scan: the rows of an event-free segment, in
-    order, for ``L`` runs of ``T`` simulated threads (see
+def fast_window(va, is_write, thr, oom_killed, nodes, lat, caches, acc,
+                counters, hot, row_counts, *, now0: int, map_shift: int,
+                radix_bits: int, thp: bool, costs):
+    """An event-free segment of steps in one launch, for ``L`` runs of
+    ``T`` simulated threads over ``R`` rows: the precompute (granules,
+    placements, Bernoulli draws, latency terms), the TLB and page-walk-cache
+    chain, the hotness counts and the integer counters (see
     ``ref.fast_window_ref`` for the semantics and layouts).
 
-    ``m`` ``i32[L, R, T]``; ``flags`` ``bool[L, R, T, 4]``; ``terms``
-    ``f32[L, R, T, 4]``; ``caches`` four ``(tags, lru)`` pairs ``i32[L, T,
-    sets, ways]`` (L1 dTLB, STLB, PDE and PDPTE; the two walk caches have
-    one set); ``acc`` four ``f32[L, T]`` accumulators (total, walk, stall,
-    data memory); ``now0`` the first row's step; ``costs`` (llc_hit,
+    ``va`` ``i32[L, R, T]``; ``is_write`` ``bool[L, R, T]``; ``thr``
+    ``i64[L, R, 4]``; ``oom_killed`` ``bool[L]``; ``nodes`` four ``i32[L,
+    n]`` (data, leaf, mid, top); ``lat`` two ``f32[K]`` (read, write at
+    ``node + 1``); ``caches`` four ``(tags, lru)`` pairs ``i32[L, T, sets,
+    ways]`` (L1 dTLB, STLB, PDE and PDPTE; the walk caches have one set);
+    ``acc`` four ``f32[L, T]``; ``counters`` four ``i32[L]``; ``hot`` two
+    ``i32[L, n_map]``; ``row_counts`` three ``i32[L, R]`` views of one
+    stride (they may be columns of a table); ``costs`` (llc_hit,
     stlb_hit, cpu_work, data_stall_frac), read as float32.  The caches'
-    stamps are below ``now0`` (earlier steps).  Updates ``caches`` and
-    ``acc`` in place and returns ``(cum f32[L, R, 4, T], counts i32[L, R,
-    4, T])``."""
+    stamps are below ``now0``.  Updates every tensor after ``lat`` in
+    place and returns ``cum f32[L, R, 4, T]``."""
     name = "fast_window"
+    nodes, lat, acc, counters, hot, row_counts = (
+        tuple(x) for x in (nodes, lat, acc, counters, hot, row_counts))
     caches = tuple(tuple(pair) for pair in caches)
-    acc = tuple(acc)
-    _check(len(caches) == 4 and all(len(p) == 2 for p in caches)
-           and len(acc) == 4, name, "takes four (tags, lru) pairs and four "
-           "accumulators")
+    _check(len(nodes) == 4 and len(lat) == 2 and len(caches) == 4
+           and all(len(p) == 2 for p in caches) and len(acc) == 4
+           and len(counters) == 4 and len(hot) == 2 and len(row_counts) == 3,
+           name, "takes four placements, two latency tables, four (tags, "
+           "lru) pairs, four accumulators, four counters, two hotness "
+           "counts and three row counts")
     flat = [t for pair in caches for t in pair]
-    dev = _same_device(name, m, flags, terms, *flat, *acc)
-    _check(m.dtype == torch.int32 and m.dim() == 3, name,
-           f"m must be int32 [L, R, T], got {m.dtype} {tuple(m.shape)}")
-    L, R, T = m.shape
-    _check(flags.dtype == torch.bool and flags.shape == (L, R, T, 4), name,
-           "flags must be bool [L, R, T, 4]")
-    _check(terms.dtype == torch.float32 and terms.shape == (L, R, T, 4), name,
-           "terms must be float32 [L, R, T, 4]")
+    dev = _same_device(name, va, is_write, thr, oom_killed, *nodes, *lat,
+                       *flat, *acc, *counters, *hot, *row_counts)
+    _check(va.dtype == torch.int32 and va.dim() == 3, name,
+           f"va must be int32 [L, R, T], got {va.dtype} {tuple(va.shape)}")
+    L, R, T = va.shape
+    _check(is_write.dtype == torch.bool and is_write.shape == (L, R, T), name,
+           "is_write must be bool [L, R, T]")
+    _check(thr.dtype == torch.int64 and thr.shape == (L, R, 4), name,
+           "thr must be int64 [L, R, 4]")
+    _check(oom_killed.dtype == torch.bool and oom_killed.shape == (L,), name,
+           "oom_killed must be bool [L]")
+    for t in nodes:
+        _check(t.dtype == torch.int32 and t.dim() == 2 and t.shape[0] == L
+               and t.shape[1] > 0, name, "the placements must be int32 [L, n]")
+    for t in lat:
+        _check(t.dtype == torch.float32 and t.shape == lat[0].shape
+               and t.dim() == 1 and t.numel() > 0, name,
+               "the latency tables must be float32 [K]")
     for tags, lru in caches:
         _check(tags.dtype == torch.int32 and lru.dtype == torch.int32
                and tags.dim() == 4 and tags.shape == lru.shape
@@ -287,24 +306,38 @@ def fast_window(m, flags, terms, caches, acc, *, now0: int, radix_bits: int,
                "each cache must be an int32 (tags, lru) pair [L, T, sets, ways]")
     for tags, _ in caches[2:]:
         _check(tags.shape[2] == 1, name, "the walk caches have one set")
+    for tags, _ in caches:   # the kernel compares a set's ways one a lane
+        _check(tags.shape[3] <= 32, name, "a cache has at most 32 ways")
     for a in acc:
         _check(a.dtype == torch.float32 and a.shape == (L, T), name,
                "the accumulators must be float32 [L, T]")
-    for t in (m, flags, terms, *flat, *acc):
+    for c in counters:
+        _check(c.dtype == torch.int32 and c.shape == (L,), name,
+               "the counters must be int32 [L]")
+    for h in hot:
+        _check(h.dtype == torch.int32 and h.shape == nodes[0].shape, name,
+               "the hotness counts must be int32 [L, n_map]")
+    for rc in row_counts:
+        _check(rc.dtype == torch.int32 and rc.shape == (L, R)
+               and rc.stride() == row_counts[0].stride(), name,
+               "the row counts must be int32 [L, R] views of one stride")
+    for t in (va, is_write, thr, oom_killed, *nodes, *lat, *flat, *acc,
+              *counters, *hot):
         _check(t.is_contiguous(), name, "needs contiguous tensors")
-    _check(flags.data_ptr() % 4 == 0 and terms.data_ptr() % 16 == 0, name,
-           "flags and terms must start on 4- and 16-byte boundaries")
-    _check(0 <= int(radix_bits) <= 15, name, "radix_bits must be in [0, 15]")
+    _check(0 <= int(radix_bits) <= 15 and 0 <= int(map_shift) <= 30, name,
+           "radix_bits must be in [0, 15] and map_shift in [0, 30]")
     # the kernel ranks a set's ways by ways * (lru + 2) + way in 32 bits
     max_ways = max(tags.shape[3] for tags, _ in caches)
     _check(0 <= int(now0) and (int(now0) + R + 3) * max_ways < 1 << 32, name,
            f"step stamps up to {int(now0) + R} do not fit the kernel's "
            f"32-bit way ranking at {max_ways} ways")
     if dev.type == "cpu":
-        return ref.fast_window_ref(m, flags, terms, caches, acc, now0,
-                                   radix_bits, thp, costs)
-    return _fast_window.fast_window_cuda(m, flags, terms, caches, acc, now0,
-                                         radix_bits, thp, costs)
+        return ref.fast_window_ref(va, is_write, thr, oom_killed, nodes, lat,
+                                   caches, acc, counters, hot, row_counts,
+                                   now0, map_shift, radix_bits, thp, costs)
+    return _fast_window.fast_window_cuda(
+        va, is_write, thr, oom_killed, nodes, lat, caches, acc, counters, hot,
+        row_counts, now0, map_shift, radix_bits, thp, costs)
 
 
 def launch_counts() -> dict:

@@ -603,6 +603,26 @@ def alloc_scan_cases():
     return cases
 
 
+def set_magic(sets: int) -> tuple[int, int]:
+    """``(magic, shift)`` with ``tag % sets == tag - (tag * magic >> shift)
+    * sets`` for every ``0 <= tag < 2^31`` (``csrc/fast_window.cu``'s set
+    index, no division on the card): ``shift = 31 + ceil(log2 sets)`` and
+    ``magic = ceil(2^shift / sets) < 2^32``, so ``magic * sets - 2^shift
+    < sets <= 2^(shift - 31)`` (Granlund and Montgomery, 1994, theorem
+    4.2) and the product fits 63 bits."""
+    if sets < 1:
+        raise ValueError(f"sets must be >= 1, got {sets}")
+    shift = 31 + (sets - 1).bit_length()
+    return -(-(1 << shift) // sets), shift
+
+
+def set_index(tag, sets: int):
+    """``tag % sets`` for int64 ``tag`` in ``[0, 2^31)`` as the kernel
+    computes it (:func:`set_magic`)."""
+    magic, shift = set_magic(sets)
+    return tag - ((tag * magic) >> shift) * sets
+
+
 def _probe_sets(tags, lru, tag):
     """(hit, flat entry index) of one ``tag`` per cache of ``[N, sets,
     ways]``: the lowest matching way, else the lowest way of least lru
@@ -624,36 +644,94 @@ def _touch(tags, lru, pos, tag, now, on):
         flat.index_copy_(0, pos, torch.where(on, val, flat.index_select(0, pos)))
 
 
-def fast_window_ref(m, flags, terms, caches, acc, now0, radix_bits, thp,
-                    costs):
-    """The fast window's inner scan, row by row (the plain version of
-    ``csrc/fast_window.cu``; the JAX package's ``_build_fast_window``
-    ``row``).
+def fast_window_rows(va, is_write, thr, oom_killed, nodes, lat, now0,
+                     map_shift, radix_bits, llc_hit):
+    """The segment's precompute (the JAX package's ``_build_fast_window``
+    before its inner scan): placements are constant over an event-free
+    segment, so every gather, Bernoulli draw and latency term is taken at
+    once over ``[L, R, T]``.  Returns ``(m i32, flags bool[..., 4] (active,
+    leaf / mid / top LLC hit), terms f32[..., 4] (leaf read, mid and top
+    read on a miss, data cost))``; see :func:`fast_window_ref`."""
+    L, R, T = va.shape
+    dev = va.device
+    data_node, leaf_node, mid_node, top_node = nodes
+    read_lat, write_lat = lat
+    rb = radix_bits
+    m = torch.where(va >= 0, va >> map_shift, 0).clamp(0, data_node.shape[1] - 1)
+    active = (va >= 0) & ~oom_killed[:, None, None]
 
-    ``m i32[L, R, T]`` the rows' mapping granules; ``flags bool[L, R, T,
-    4]`` (active, leaf LLC hit, mid LLC hit, top LLC hit); ``terms f32[L,
-    R, T, 4]`` (leaf read, mid read on a PDE miss, top read on a full
-    walk, data cost); ``caches`` the (tags, lru) pairs ``i32[L, T, sets,
-    ways]`` of the L1 dTLB, STLB, PDE and PDPTE caches; ``acc`` the f32
-    ``[L, T]`` accumulators of total, walk, stall and data-memory cycles;
+    def node_lat(table, arr, idx):
+        node = torch.gather(arr, 1, idx.clamp(max=arr.shape[1] - 1)
+                            .reshape(L, -1).long()).view(idx.shape)
+        return table[(node.long() + 1).clamp(0, table.shape[0] - 1)]
+
+    from ..core.sim import _site_seed, bern_hash
+    # the four draws of sites 1-4 (leaf, mid, top, data) at once
+    seeds = torch.tensor([_site_seed(site) for site in (1, 2, 3, 4)],
+                         dtype=torch.int64, device=dev)[:, None, None, None]
+    now = (int(now0) + torch.arange(R, device=dev))[None, :, None]
+    draws = bern_hash(seeds, (
+        torch.stack([m, m >> (2 * rb), m >> (3 * rb), m]), now,
+        torch.arange(T, device=dev))) < thr.permute(2, 0, 1)[..., None]
+    leaf_llc, up1_llc, up2_llc, data_llc = draws.unbind(0)
+    leaf_read = torch.where(leaf_llc, llc_hit,
+                            node_lat(read_lat, leaf_node, m >> rb))
+    mid_read_miss = torch.where(up1_llc, llc_hit,
+                                node_lat(read_lat, mid_node, m >> (2 * rb)))
+    top_read_miss = torch.where(up2_llc, llc_hit,
+                                node_lat(read_lat, top_node, m >> (3 * rb)))
+    mem_lat = torch.where(is_write, node_lat(write_lat, data_node, m),
+                          node_lat(read_lat, data_node, m))
+    data_cost = torch.where(active, torch.where(data_llc, llc_hit, mem_lat),
+                            0.0)
+    flags = torch.stack([active, leaf_llc, up1_llc, up2_llc], -1)
+    terms = torch.stack([leaf_read, mid_read_miss, top_read_miss, data_cost], -1)
+    return m.to(torch.int32), flags, terms
+
+
+def fast_window_ref(va, is_write, thr, oom_killed, nodes, lat, caches, acc,
+                    counters, hot, row_counts, now0, map_shift, radix_bits,
+                    thp, costs):
+    """An event-free segment of steps, ``L`` runs of ``T`` simulated
+    threads over ``R`` rows (the plain version of ``csrc/fast_window.cu``;
+    the JAX package's ``_build_fast_window``): the precompute
+    (:func:`fast_window_rows`), then the TLB and page-walk-cache chain row
+    by row, the hotness counts and the counters.
+
+    ``va i32[L, R, T]`` and ``is_write bool[L, R, T]`` the segment's trace
+    rows; ``thr i64[L, R, 4]`` the draws' thresholds of sites 1-4 (leaf,
+    mid, top, data) per row; ``oom_killed bool[L]``; ``nodes`` the
+    ``i32[L, n]`` placements of data, leaf, mid and top pages; ``lat`` the
+    ``f32[n_nodes + 1]`` read and write latencies at ``node + 1``;
+    ``caches`` the (tags, lru) pairs ``i32[L, T, sets, ways]`` of the L1
+    dTLB, STLB, PDE and PDPTE caches; ``acc`` the f32 ``[L, T]``
+    accumulators of total, walk, stall and data-memory cycles;
+    ``counters`` the i32 ``[L]`` counts of L1 hits, STLB hits, walks and
+    walk reads; ``hot`` the i32 ``[L, n_map]`` access and write counts;
+    ``row_counts`` three i32 ``[L, R]`` views to which each row's L1 hits,
+    STLB hits and walks since the call, summed over threads, are added;
     row r is stamped ``now0 + r``; ``costs`` (llc_hit, stlb_hit, cpu_work,
-    data_stall_frac).  The caches and ``acc`` are updated in place.
-    Returns ``(cum f32[L, R, 4, T], counts i32[L, R, 4, T])``: after each
-    row, the four accumulators and the counts of L1 hits, STLB hits, walks
-    and walk reads since the call, per thread."""
-    L, R, T = m.shape
+    data_stall_frac).  Node ids index ``lat`` clamped to its length, and
+    page ids the placements clamped to theirs.  Every tensor but the
+    returned one is updated in place.  Returns ``cum f32[L, R, 4, T]``:
+    the four accumulators after each row, per thread."""
+    L, R, T = va.shape
     N = L * T
+    dev = va.device
     llc_hit, stlb_hit, cpu_work, frac = (float(np.float32(c)) for c in costs)
+    m_all, flags, terms = fast_window_rows(va, is_write, thr, oom_killed,
+                                           nodes, lat, now0, map_shift,
+                                           radix_bits, llc_hit)
     views = [(t.view(N, *t.shape[2:]), r.view(N, *r.shape[2:]))
              for t, r in caches]
     (l1, l1r), (stlb, stlbr), (pde, pder), (pdpte, pdpter) = views
     ct, cwk, cst, cdm = (a.view(N) for a in acc)
-    cum = torch.empty((L, R, 4, T), dtype=torch.float32, device=m.device)
-    counts = torch.empty((L, R, 4, T), dtype=torch.int32, device=m.device)
-    cnt = torch.zeros((4, N), dtype=torch.int32, device=m.device)
+    cum = torch.empty((L, R, 4, T), dtype=torch.float32, device=dev)
+    per_row = torch.empty((L, R, 3), dtype=torch.int32, device=dev)
+    cnt = torch.zeros((4, N), dtype=torch.int32, device=dev)
     for r in range(R):
         now = int(now0) + r
-        m_r = m[:, r].reshape(N)
+        m_r = m_all[:, r].reshape(N)
         act, leaf_llc, up1, up2 = flags[:, r].reshape(N, 4).unbind(1)
         lread, mread, tread, dcost = terms[:, r].reshape(N, 4).unbind(1)
         leaf, mid = m_r >> radix_bits, m_r >> (2 * radix_bits)
@@ -686,19 +764,31 @@ def fast_window_ref(m, flags, terms, caches, acc, now0, radix_bits, thp,
                             walkn.int(), walk_reads.int()])
         cum[:, r] = torch.stack([ct, cwk, cst, cdm]).view(4, L, T) \
             .transpose(0, 1)
-        counts[:, r] = cnt.view(4, L, T).transpose(0, 1)
-    return cum, counts
+        per_row[:, r] = cnt[:3].view(3, L, T).sum(2, dtype=torch.int32).T
+    for c, k in zip(counters, cnt.view(4, L, T).sum(2, dtype=torch.int32)):
+        c += k
+    for rc, k in zip(row_counts, per_row.unbind(2)):
+        rc += k
+    # integer adds commute, so one scatter-add for the segment
+    n_map = hot[0].shape[1]
+    idx = (m_all.long() + n_map * torch.arange(L, device=dev)[:, None, None]
+           ).reshape(-1)
+    hot[0].view(-1).index_add_(0, idx, flags[..., 0].reshape(-1).int())
+    hot[1].view(-1).index_add_(0, idx, (flags[..., 0] & is_write)
+                               .reshape(-1).int())
+    return cum
 
 
 def fast_window_inputs(mc, L, R, T, seed, *, inactive=0.1, oom=False,
                        device="cpu"):
-    """Drawn arguments of ``ops.fast_window`` on machine ``mc``'s cache
-    geometry: ``(m, flags, terms, caches, acc, kw)``.  Granules come from
+    """Drawn arguments of ``ops.fast_window`` on machine ``mc``'s geometry:
+    ``(args, kw)``, ``ops.fast_window(*args, **kw)``.  Granules come from
     a hot set of 16 (so every cache hits) and the whole map (so each
-    misses); cache tags sit in their sets, a fifth of the ways are empty,
-    and lru stamps share a few values (ties); ``inactive`` rows have
-    ``va = -1`` (data cost 0); ``oom`` makes every row inactive, as an
-    OOM-killed state does."""
+    misses); placements are drawn over the nodes and -1; cache tags sit in
+    their sets, a fifth of the ways are empty, and lru stamps share a few
+    values (ties); ``inactive`` rows have ``va = -1``; ``oom`` makes the
+    state OOM-killed (every row inactive).  The row counts are three
+    columns of one ``[R, 9]`` table per run, as the timeline's."""
     g = torch.Generator().manual_seed(seed)
     rb, n_map = mc.radix_bits, mc.n_map
     hot = torch.randint(0, n_map, (16,), generator=g)
@@ -708,13 +798,23 @@ def fast_window_inputs(mc, L, R, T, seed, *, inactive=0.1, oom=False,
         return torch.where(pick, hot[torch.randint(0, 16, shape, generator=g)],
                            torch.randint(0, n_map, shape, generator=g))
 
-    m = granules((L, R, T)).to(torch.int32)
-    p = torch.tensor([1 - inactive, 0.3, 0.35, 0.35])
-    flags = torch.rand((L, R, T, 4), generator=g) < p
-    if oom:
-        flags[..., 0] = False
-    terms = (torch.rand((L, R, T, 4), generator=g) * 600).to(torch.float32)
-    terms[..., 3] = torch.where(flags[..., 0], terms[..., 3], 0.0)
+    def ints(lo, hi, shape):
+        return torch.randint(lo, hi, shape, generator=g, dtype=torch.int32)
+
+    m = granules((L, R, T))
+    offset = torch.randint(0, 1 << mc.map_shift, (L, R, T), generator=g)
+    live = torch.rand((L, R, T), generator=g) >= inactive
+    va = torch.where(live, (m << mc.map_shift) + offset, -1).to(torch.int32)
+    is_write = torch.rand((L, R, T), generator=g) < 0.4
+    p = torch.tensor([0.3, 0.35, 0.35])
+    thr = torch.empty((L, R, 4), dtype=torch.int64)
+    thr[..., :3] = (p * (1 << 24)).long()
+    thr[..., 3] = (torch.rand((L, R), generator=g) * (1 << 24)).long()
+    oom_killed = torch.full((L,), bool(oom))
+    nodes = [ints(-1, mc.n_nodes, (L, n)) for n in (
+        n_map, mc.n_leaf_pages, mc.n_mid_pages, mc.n_top_pages)]
+    lat = [(torch.rand(mc.n_nodes + 1, generator=g) * 600).to(torch.float32)
+           for _ in range(2)]
     now0 = 1000 + seed
     caches = []
     for sets, ways, shift in ((mc.l1_tlb_sets, mc.l1_tlb_ways, 0),
@@ -728,9 +828,24 @@ def fast_window_inputs(mc, L, R, T, seed, *, inactive=0.1, oom=False,
         tags = torch.where(empty, -1, tags).to(torch.int32)
         lru = now0 - 1 - torch.randint(0, 6, shape, generator=g)
         lru = torch.where(empty, -1, lru).to(torch.int32)
-        caches.append((tags.to(device), lru.to(device)))
-    acc = [(torch.rand((L, T), generator=g) * 1e6).to(torch.float32).to(device)
+        caches.append((tags, lru))
+    acc = [(torch.rand((L, T), generator=g) * 1e6).to(torch.float32)
            for _ in range(4)]
-    kw = dict(now0=now0, radix_bits=rb, thp=mc.page_order > 0,
-              costs=(40.0, 10.0, 60.0, 0.6))
-    return (m.to(device), flags.to(device), terms.to(device), caches, acc, kw)
+    counters = [ints(0, 1 << 20, (L,)) for _ in range(4)]
+    hot_counts = [ints(0, 100, (L, n_map)) for _ in range(2)]
+    table = ints(0, 1 << 20, (L, R, 9))
+    args = [va, is_write, thr, oom_killed, nodes, lat, caches, acc, counters,
+            hot_counts, table]
+    args = _to_device(args, device)
+    table = args.pop()
+    args.append([table[..., c] for c in (7, 8, 4)])
+    kw = dict(now0=now0, map_shift=mc.map_shift, radix_bits=rb,
+              thp=mc.page_order > 0, costs=(40.0, 10.0, 60.0, 0.6))
+    return args, kw
+
+
+def _to_device(obj, device):
+    """A copy of a nest of lists of tensors on ``device``."""
+    if isinstance(obj, (list, tuple)):
+        return [_to_device(x, device) for x in obj]
+    return obj.to(device).clone()
