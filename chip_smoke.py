@@ -62,15 +62,18 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    (speculated) and at the replay shape (near the thresholds) beside an
    empty kernel; then ``fast_window`` (N1), the fast window's inner scan,
    against its plain version, exactly (every output, and the caches and
-   accumulators it writes back), on drawn segments of 1 to 128 rows,
+   accumulators it writes back), on drawn segments of 1 to 256 rows,
    T = 4 and 32, L = 1 and 3, ``benchmark_machine()`` and
    ``cxl_machine()`` with THP off and on, inactive rows and OOM-killed
-   states, and its time at a quickstart segment's shape beside an empty
+   states, caches of 33 to 64 ways, and three lanes with three
+   CostConfigs' costs and the trace rows step-major, as the engine passes
+   them; and its time at a quickstart segment's shape beside an empty
    kernel;
 9. the quickstart (``repro_torch.quickstart``) on the card at full size
    under the default (blocked) engine: ``benchmark_machine()``, the
-   16,384-step ``kv_store`` trace, Linux first-touch and Radiant BHi+Mig,
-   held to the golden file of the JAX package's outputs
+   16,384-step ``kv_store`` trace, Linux first-touch (Radiant BHi+Mig runs
+   at full size in [sweep], and solo at [10]'s size), held to the golden
+   file of the JAX package's outputs
    (``src/repro_torch/core/golden/quickstart.json``; the trace's digest
    first, then every summary key and the last and populate-phase rows of
    every timeline key: integers exact, cycles to rtol 1e-5), the loop
@@ -83,6 +86,13 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    windows at [10]'s size: one populate window and four run-phase windows
    of the blocked engine) device activities per step, the device's idle
    share and the kernels' times per launch;
+[sweep] the quickstart's two policies as one 2-lane sweep at full size
+   (``core.sweep.sweep_runner``, ``sweep_lanes`` run window by window):
+   each lane held to the golden file, the loop under the sync check,
+   ``alloc_scan`` launches == the steps with a fault (one launch for both
+   lanes), ``fast_window`` launches == the plan's fast segments; wall
+   clock and lane-steps/s, populate and run phase apart, beside [9]'s solo
+   run in the same call;
 10. per case, the card's blocked run against its per-step run
    (``debug=True``: every state field bitwise, the timeline's integer keys
    exact, its f32 keys bitwise or else to rtol 1e-6, and which held is
@@ -91,8 +101,12 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    for field over the final state and the timeline, at footprint 2^13 and
    512 run steps: tests/test_core_oracle.py's six policies on
    ``benchmark_machine()``, ``tpp()`` and ``nomad()`` on ``cxl_machine()``;
-   then the sequential fault path against the batched one on a small case
-   (footprint 2^10, 64 run steps);
+   then sweeps at that size, each lane bitwise against its solo blocked
+   run: the six policies as one 6-lane sweep, ``tpp()`` and ``nomad()`` as
+   one 2-lane sweep, a 2-trace grid of 4 lanes with a mid-run free and
+   three CostConfigs; a machine of 33 to 64 ways, blocked against
+   per-step; then the sequential fault path against the batched one on a
+   small case (footprint 2^10, 64 run steps);
 [steady] the steady-state trace of benchmarks/steady_state.py under Linux
    first-touch and BHi+Mig at ``autonuma_period`` 512: the blocked and the
    per-step engine's wall clock and steps/s, the two held equal as in
@@ -481,9 +495,21 @@ def fast_window_bytes(args) -> int:
                                    + torch.cat(missed[c]).unique().numel())
         cache_bytes += 4 * int((t1 != t0).sum() + (r1 != r0).sum())
     return (va.numel() * 5 + thr.numel() * 8 + L + 4 * gathered
-            + sum(t.numel() * 4 for t in lat) + cache_bytes
+            + sum(t.numel() * 4 for t in lat) + kw["costs"].numel() * 4
+            + cache_bytes
             + 2 * 4 * (4 * L * T + 4 * L) + 2 * 4 * touched
             + 2 * 4 * 3 * L * R + 4 * L * R * 4 * T)
+
+
+# fast_window's cases of more than 32 ways ([8]): the L1 dTLB 33, the STLB
+# 48, the PDE walk cache 64 and the PDPTE walk cache 40, on
+# benchmark_machine()'s geometry
+WIDE_CACHES = dict(l1_tlb_ways=33, stlb_sets=32, stlb_ways=48,
+                   pde_pwc_entries=64, pdpte_pwc_entries=40)
+# three CostConfigs' (llc_hit, stlb_hit, cpu_work, data_stall_frac), one a
+# lane, for [8]'s L = 3 cases
+LANE_COSTS = ((40.0, 10.0, 60.0, 0.6), (55.0, 7.0, 31.0, 0.25),
+              (12.0, 30.0, 90.0, 0.9))
 
 
 def fast_window_phase(dev, seed=0):
@@ -493,8 +519,11 @@ def fast_window_phase(dev, seed=0):
     counts); drawn segments of 1, 7, 64, 128 and 256 rows at T = 4 and 32,
     one and three runs (L), on ``benchmark_machine()`` and
     ``cxl_machine()`` with THP off and on, inactive rows throughout and an
-    OOM-killed state (every row inactive) on each machine.  Then timed at
-    a quickstart run-phase segment's shape (L = 1, 64 rows, T = 32,
+    OOM-killed state (every row inactive) on each machine; then caches of
+    33 to 64 ways (``WIDE_CACHES``) at 1 to 128 rows, and three runs with
+    three CostConfigs' costs (``LANE_COSTS``), the trace rows laid out
+    step-major as the engine passes them.  Then timed at a quickstart
+    run-phase segment's shape (L = 1, 64 rows, T = 32,
     ``benchmark_machine()``) beside an empty kernel, the plain version
     (eager, on the card) and the byte bound, and at 1 and 128 rows for
     the per-row slope.  Returns (max abs err, timing)."""
@@ -511,34 +540,44 @@ def fast_window_phase(dev, seed=0):
     machines = [(f"{fn}(thp={thp})", getattr(cfg, fn)(thp=thp))
                 for fn in ("benchmark_machine", "cxl_machine")
                 for thp in (False, True)]
+    wide = dataclasses.replace(cfg.benchmark_machine(), **WIDE_CACHES)
+    cases = [(what, mc, R, T, 3 if R in (7, 128, 256) else 1, False, {})
+             for what, mc in machines for R in (1, 7, 64, 128, 256)
+             for T in (4, 32)]
+    cases += [(what, mc, 64, 32, 1, True, {}) for what, mc in machines]
+    cases += [("33-64 ways", wide, R, 32, L, False, {})
+              for R in (1, 7, 64, 128) for L in (1, 3)]
+    cases += [(f"{what} 3 costs", mc, R, 32, 3, False,
+               dict(costs=LANE_COSTS, step_major=True))
+              for what, mc in machines[::2] + [("33-64 ways", wide)]
+              for R in (7, 64)]
     worst, n_cases = 0.0, 0
     ops.reset_launches()
-    for what, mc in machines:
-        shapes = [(R, T, 3 if R in (7, 128, 256) else 1, False)
-                  for R in (1, 7, 64, 128, 256) for T in (4, 32)]
-        for R, T, L, oom in shapes + [(64, 32, 1, True)]:
-            case = seed + n_cases
-            want_args, kw = ref.fast_window_inputs(mc, L, R, T, case, oom=oom)
-            got_args, _ = ref.fast_window_inputs(mc, L, R, T, case, oom=oom,
-                                                 device=dev)
-            want = ops.fast_window(*want_args, **kw)
-            got = ops.fast_window(*got_args, **kw)
-            n_cases += 1
-            label = f"fast_window {what} L={L} R={R} T={T} oom={oom}"
-            for g, w in zip([got] + updated(got_args),
-                            [want] + updated(want_args)):
-                g = g.cpu()
-                check(g.dtype == w.dtype and torch.equal(g, w),
-                      f"{label}: kernel != plain version")
-                worst = max(worst, float((g.double() - w.double()).abs().max()))
+    for what, mc, R, T, L, oom, extra in cases:
+        case = seed + n_cases
+        want_args, kw = ref.fast_window_inputs(mc, L, R, T, case, oom=oom,
+                                               **extra)
+        got_args, got_kw = ref.fast_window_inputs(mc, L, R, T, case, oom=oom,
+                                                  device=dev, **extra)
+        want = ops.fast_window(*want_args, **kw)
+        got = ops.fast_window(*got_args, **got_kw)
+        n_cases += 1
+        label = f"fast_window {what} L={L} R={R} T={T} oom={oom}"
+        for g, w in zip([got] + updated(got_args),
+                        [want] + updated(want_args)):
+            g = g.cpu()
+            check(g.dtype == w.dtype and torch.equal(g, w),
+                  f"{label}: kernel != plain version")
+            worst = max(worst, float((g.double() - w.double()).abs().max()))
     check(ops.launch_counts()["fast_window"] == n_cases,
           "fast_window: launches != cases")
     log(f"[8] fast_window == plain version on {n_cases} drawn cases "
         f"(segments of 1 to 256 rows, T = 4 and 32, L = 1 and 3, "
         f"benchmark_machine() and cxl_machine() with THP off and on, "
-        f"inactive rows, OOM-killed states): cum and every cache, "
-        f"accumulator, counter, hotness count and row count exact (max abs "
-        f"err {worst})")
+        f"inactive rows, OOM-killed states; caches of 33 to 64 ways "
+        f"{WIDE_CACHES}; L = 3 with three CostConfigs' costs {LANE_COSTS}, "
+        f"rows step-major): cum and every cache, accumulator, counter, "
+        f"hotness count and row count exact (max abs err {worst})")
 
     mc = cfg.benchmark_machine()
     L, R, T = 1, 64, 32
@@ -660,7 +699,12 @@ def launch_count_phase(replays):
               f"populate window of {pop['steps']} steps")
         check(run["fast_window"][0] > 0,
               f"{name}: no fast_window launch in the run-phase windows")
-        replayed, chunks = replays[name]
+        timed = ""
+        if name in replays:            # the policy [9] ran at full size
+            replayed, chunks = replays[name]
+            timed = (f", so about {pop['alloc_scan'][1] * chunks / 1e3:.4f} "
+                     f"s over the {chunks} launches of the timed run, which "
+                     f"replayed {replayed} of its {chunks} chunks")
         log(f"[9] {name.strip()} (profiler, after [10], a fresh run at "
             f"[10]'s size): blocked engine, device activities per step: "
             f"populate {pop['per_step']:.1f} (a window of {pop['steps']} "
@@ -672,19 +716,18 @@ def launch_count_phase(replays):
             f"{run['idle']:.4f}; alloc_scan {pop['alloc_scan'][1]:.7f} ms per "
             f"launch in the populate window (over the "
             f"{pop['alloc_scan_recorded']} of its {pop['alloc_scan'][0]} "
-            f"launches the profiler recorded), so about "
-            f"{pop['alloc_scan'][1] * chunks / 1e3:.4f} s "
-            f"over the {chunks} launches of the timed run, which replayed "
-            f"{replayed} of its {chunks} chunks")
+            f"launches the profiler recorded){timed}")
 
 
 def quickstart_phase():
     """[9] the quickstart on the card at full size under the default
-    (blocked) engine, held to the golden file of the JAX package's
-    outputs; the populate windows and the run-phase windows timed apart.
-    Returns the launches of each kernel and, per policy, (chunks replayed,
-    chunks) of alloc_scan in its timed run (the device count read once,
-    after the run)."""
+    (blocked) engine, Linux first-touch alone (BHi+Mig runs at full size
+    in [sweep], beside it, and solo at [10]'s size), held to the golden
+    file of the JAX package's outputs; the populate windows and the
+    run-phase windows timed apart.  Returns the launches of each kernel,
+    per policy (chunks replayed, chunks) of alloc_scan in its timed run
+    (the device count read once, after the run), and the run's seconds
+    (populate, run phase)."""
     import torch
     from repro_torch import quickstart as tq
     from repro_torch.core import (TieredMemSimulator, benchmark_machine,
@@ -706,7 +749,7 @@ def quickstart_phase():
         f"fault) x {mc.n_threads} threads, n_map {mc.n_map}; digest matches "
         f"the golden file; trace and schedule {time.perf_counter() - t0:.1f} s")
     launches, base, replays = {"alloc_scan": 0, "fast_window": 0}, None, {}
-    for name, pc in tq.POLICIES:
+    for name, pc in tq.POLICIES[:1]:
         sim = TieredMemSimulator(mc=mc, pc=pc)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -768,7 +811,89 @@ def quickstart_phase():
             f"{host['steps']:.4f} s; the rest of the run phase's "
             f"{t3 - t2:.4f} s is waiting for the device and the loop itself "
             f"({t3 - t2 - sum(host.values()):.4f} s)")
-    return launches, replays
+    return launches, replays, (t2 - t1, t3 - t2)
+
+
+def sweep_phase(solo_s):
+    """[sweep] the quickstart's two policies (Linux first-touch and Radiant
+    BHi+Mig, both scanning every 512 steps) as one 2-lane sweep at full
+    size (``benchmark_machine()``, the 16,384-step ``kv_store``), through
+    ``core.sweep.sweep_runner`` (``sweep_lanes`` run window by window, so
+    that populate and the run phase are timed apart), the loop under
+    ``set_sync_debug_mode("error")``; each lane held to the golden file;
+    ``alloc_scan`` launches == the union's steps with a fault (one launch
+    for both lanes), ``fast_window`` launches == the plan's fast segments.
+    Prints wall clock and lane-steps/s beside [9]'s solo run
+    (``solo_s``: its populate and run-phase seconds).  Returns the
+    launches."""
+    import torch
+    from repro_torch import quickstart as tq
+    from repro_torch.core import CostConfig, benchmark_machine, fault_step_mask
+    from repro_torch.core.sweep import sweep_runner
+    from repro_torch.kernels import ops
+
+    golden = tq.load_golden()
+    mc = benchmark_machine()
+    trace = tq.quickstart_trace(mc)
+    names, pols = zip(*tq.POLICIES)
+    L, S, p = len(pols), trace.n_steps, trace.populate_steps
+    fault_steps = int(fault_step_mask(trace, mc).sum())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = sweep_runner(mc, [CostConfig()] * L, pols, [trace] * L)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    pop_windows = -(-p // runner.block)
+    ops.reset_launches()
+    with sync_error():
+        runner.advance(pop_windows)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    with sync_error():
+        runner.advance()
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    counts = ops.launch_counts()
+    results = runner.results()
+    t4 = time.perf_counter()
+    check(counts["alloc_scan"] == fault_steps,
+          f"[sweep] alloc_scan launches {counts['alloc_scan']} != "
+          f"{fault_steps} steps with a fault (one launch for both lanes)")
+    check(counts["fast_window"] == runner.fast_segments > 0,
+          f"[sweep] fast_window launches {counts['fast_window']} != "
+          f"{runner.fast_segments} fast segments of the plan")
+    base = None
+    for name, pc, res in zip(names, pols, results):
+        bad = tq.mismatches({"label": pc.label(), **tq.outputs(res, trace)},
+                            golden["policies"][name])
+        check(not bad, f"[sweep] lane {name}: differs from the golden file: "
+              f"{bad[:8]}")
+        if base is None:
+            base = tq.run_phase(res, trace)[0]
+        log(f"[sweep] lane {tq.report_line(name.strip(), res, trace, base)}")
+    n_pop = min(pop_windows * runner.block, S)
+    pop_s, run_s = t2 - t1, t3 - t2
+    solo_pop, solo_run = solo_s
+    log(f"[sweep] 2-lane sweep of the quickstart ({', '.join(n.strip() for n in names)}; "
+        f"{S} steps, {fault_steps} with a fault): each lane == golden file "
+        f"(every summary key and the last and populate rows of every "
+        f"timeline key); launches {counts} ({runner.fast_segments} fast "
+        f"segments of the plan); under set_sync_debug_mode('error'): "
+        f"populate {pop_s:.2f} s ({L * n_pop / pop_s:.1f} lane-steps/s), "
+        f"run phase {run_s:.3f} s ({L * (S - n_pop) / run_s:.1f} "
+        f"lane-steps/s), whole {pop_s + run_s:.2f} s "
+        f"({L * S / (pop_s + run_s):.1f} lane-steps/s); set-up "
+        f"{t1 - t0:.2f} s, results {t4 - t3:.2f} s; host time by segment "
+        f"kind {dict((k, round(v, 4)) for k, v in runner.host_s.items())}")
+    log(f"[sweep] against [9]'s solo Linux run in this call (populate "
+        f"{solo_pop:.2f} s, run phase {solo_run:.3f} s, "
+        f"{S / (solo_pop + solo_run):.1f} steps/s): the sweep takes "
+        f"{(pop_s + run_s) / (solo_pop + solo_run):.3f}x its wall clock "
+        f"(populate {pop_s / solo_pop:.3f}x, run phase "
+        f"{run_s / solo_run:.3f}x) for {L} lanes, "
+        f"{L * S / (pop_s + run_s) / (S / (solo_pop + solo_run)):.3f}x its "
+        f"steps/s in lane-steps/s")
+    return counts
 
 
 def cpu_route_worker(case: int, out: str) -> int:
@@ -857,7 +982,7 @@ def cpu_route_phase(width=6):
     cases = sim_cases()
     env = dict(os.environ, CUDA_VISIBLE_DEVICES="")     # the CPU route only
     procs: list[subprocess.Popen] = []
-    held = []
+    held, solo = [], []
 
     def top_up(tmp):
         while (len(procs) < len(cases)
@@ -876,6 +1001,7 @@ def cpu_route_phase(width=6):
                 fault_steps = int(fault_step_mask(trace, mc).sum())
                 card, runner, blocked_s = timed_run(
                     TieredMemSimulator(mc=mc, pc=pc), trace)
+                solo.append(card)
                 counts = ops.launch_counts()
                 check(counts["alloc_scan"] == fault_steps,
                       f"[10] {name}: alloc_scan launches != steps with a fault")
@@ -919,6 +1045,7 @@ def cpu_route_phase(width=6):
                 if p.poll() is None:
                     p.kill()
                 p.wait()
+    held += sweep_cases(cases, solo)
     mc = benchmark_machine()
     trace = workloads.kv_store(mc, 1 << 10, run_steps=64)
     pc = bhi_mig()
@@ -934,6 +1061,129 @@ def cpu_route_phase(width=6):
         f"{seq_s:.2f} s, batched {batched_s:.2f} s")
     log(f"[10] total {time.perf_counter() - t0:.1f} s")
     return held
+
+
+def lanes_bitwise(got, want, what):
+    """Each sweep lane ``got[i]`` == the solo run ``want[i]``, bit for bit:
+    every state field and every timeline key."""
+    import numpy as np
+    for i, (a, b) in enumerate(zip(got, want)):
+        fa, fb = dict(state_fields(a.final_state)), dict(state_fields(b.final_state))
+        check(fa.keys() == fb.keys(), f"{what}: lane {i}: fields")
+        bad = [k for k in fa if not (fa[k].dtype == fb[k].dtype
+                                     and np.array_equal(fa[k], fb[k]))]
+        bad += [f"timeline.{k}" for k in a.timeline
+                if not (a.timeline[k].dtype == b.timeline[k].dtype
+                        and np.array_equal(a.timeline[k], b.timeline[k]))]
+        check(not bad, f"{what}: lane {i} ({b.policy_label}) != its solo run "
+              f"on {bad}")
+
+
+def timed_sweep(mc, ccs, pols, traces, what):
+    """(lanes, seconds) of one ``sweep_lanes`` on the card, the loop under
+    the sync check, with ``alloc_scan`` launches == the union's steps with
+    a fault and ``fast_window`` launches == the plan's fast segments."""
+    import numpy as np
+    import torch
+    from repro_torch.core import fault_step_mask
+    from repro_torch.core.sweep import sweep_runner
+    from repro_torch.kernels import ops
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    runner = sweep_runner(mc, ccs, pols, traces)
+    ops.reset_launches()
+    with sync_error():
+        runner.advance()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    union = np.zeros(traces[0].n_steps, bool)
+    for tr in traces:
+        union |= fault_step_mask(tr, mc)
+    check(counts["alloc_scan"] == int(union.sum()),
+          f"{what}: alloc_scan launches {counts['alloc_scan']} != "
+          f"{int(union.sum())} steps where a lane faults")
+    check(counts["fast_window"] == runner.fast_segments,
+          f"{what}: fast_window launches != fast segments")
+    return runner.results(), seconds, counts, runner.plan.counts
+
+
+def sweep_cases(cases, solo):
+    """[10]'s sweeps on the card, at [10]'s size, each lane bitwise against
+    the solo blocked run of its case: one 6-lane sweep of the six
+    ``benchmark_machine()`` policies, one 2-lane sweep of ``tpp()`` and
+    ``nomad()`` on ``cxl_machine()`` (``solo`` holds [10]'s solo runs, in
+    ``cases`` order); a 2-trace grid of 4 lanes with a mid-run free in one
+    trace and three CostConfigs (against 4 solo runs made here); then a
+    machine of 33 to 64 ways (``WIDE_CACHES``), blocked against per-step.
+    Returns how its f32 timeline keys held (``engines_agree``)."""
+    import numpy as np
+    from repro_torch.core import (CostConfig, PolicyConfig, TieredMemSimulator,
+                                  benchmark_machine, bhi_mig, workloads)
+    for lo, hi, what in ((0, 6, "[10] 6-lane sweep of the six "
+                                "benchmark_machine() policies"),
+                         (6, 8, "[10] 2-lane sweep of tpp() and nomad() on "
+                                "cxl_machine()")):
+        mc = cases[lo][1]
+        trace = workloads.kv_store(mc, **REDUCED)
+        pols = [pc for _, _, pc in cases[lo:hi]]
+        lanes, sec, counts, plan = timed_sweep(mc, [CostConfig()] * len(pols),
+                                               pols, [trace] * len(pols), what)
+        lanes_bitwise(lanes, solo[lo:hi], what)
+        log(f"{what}: each lane == its solo blocked run bitwise (every state "
+            f"field and timeline key); windows {plan}, launches {counts}; "
+            f"{sec:.2f} s for {len(pols)} lanes")
+
+    mc = benchmark_machine()
+    a = workloads.kv_store(mc, **REDUCED, name="a")
+    b = workloads.kv_store(mc, **REDUCED, seed=3, name="b")
+    seg = (np.arange(mc.n_map) >= REDUCED["footprint"] // 2).astype(np.int32)
+    free = np.full(b.n_steps, -1, np.int32)
+    free[b.populate_steps + REDUCED["run_steps"] // 4] = 1   # upper half exits
+    b = dataclasses.replace(b, seg_of_map=seg, free_seg=free)
+    costs = [CostConfig(),
+             CostConfig(llc_hit=55, stlb_hit=7, cpu_work=31, nvmm_read=900,
+                        fault_base=700, migrate_fixed=900, copy_lines=24,
+                        data_stall_frac=0.25, mig_cost_scale=0.1,
+                        leaf_llc_hit=0.5, upper_llc_hit=0.2),
+             CostConfig(dram_read=200, nvmm_write=1300, alloc_slow=3000,
+                        zero_lines=8, tlb_flush=600, data_stall_frac=0.9,
+                        leaf_llc_hit=0.1, upper_llc_hit=0.6)]
+    p2, p3 = (PolicyConfig(**ORACLE_POLICIES[i]) for i in (2, 3))
+    lane_args = [(costs[0], p2, a), (costs[1], p3, b), (costs[2], p3, a),
+                 (costs[2], p2, b)]
+    what = "[10] 2-trace grid, a mid-run free, three CostConfigs"
+    ccs, pols, trs = zip(*lane_args)
+    lanes, sec, counts, plan = timed_sweep(mc, list(ccs), list(pols),
+                                           list(trs), what)
+    solos = [timed_run(TieredMemSimulator(mc=mc, cc=c, pc=p), t)[0]
+             for c, p, t in lane_args]
+    lanes_bitwise(lanes, solos, what)
+    sums = [r.summary() for r in lanes]
+    check(len({x["total_cycles"] for x in sums}) == len(lanes),
+          f"{what}: two lanes give the same cycles")
+    mapped = [x["data_pages_dram"] + x["data_pages_nvmm"] for x in sums]
+    check(mapped[1] < mapped[0], f"{what}: the free left {mapped[1]} pages "
+          f"mapped, the trace without it {mapped[0]}")
+    log(f"{what}: 4 lanes (trace, costs, policy) each == its solo blocked "
+        f"run bitwise; windows {plan}, launches {counts}; {sec:.2f} s")
+
+    mc = dataclasses.replace(benchmark_machine(), **WIDE_CACHES)
+    trace = workloads.kv_store(mc, **REDUCED)
+    pc = bhi_mig()                  # a tick every 512 steps: fast windows
+    blk, runner, blk_s = timed_run(TieredMemSimulator(mc=mc, pc=pc), trace)
+    ps, _, ps_s = timed_run(TieredMemSimulator(mc=mc, pc=pc,
+                                               engine="per_step", debug=True),
+                            trace)
+    how = engines_agree(blk, ps, "[10] 33-64 ways: blocked vs per-step")
+    s = blk.summary()
+    check(runner.fast_segments > 0, "[10] 33-64 ways: no fast segment")
+    log(f"[10] 33-64 ways {WIDE_CACHES}, {pc.label()}: card blocked == card "
+        f"per-step (state bitwise, f32 timeline keys {how}); windows "
+        f"{runner.plan.counts}, {runner.fast_segments} fast segments, stlb "
+        f"hits {s['stlb_hits']}, walks {s['walks']}; blocked {blk_s:.2f} s, "
+        f"per-step {ps_s:.2f} s")
+    return [how]
 
 
 def steady_state_phase():
@@ -1585,9 +1835,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     err["alloc_scan"], _, alloc_t = alloc_scan_phase(dev)
     err["fast_window"], window_t = fast_window_phase(dev)
-    sim_launches, replays = quickstart_phase()
-    launches.update(sim_launches)
+    sim_launches, replays, solo_s = quickstart_phase()
     log(f"[9] total wall {time.perf_counter() - t_start:.1f} s")
+    swept = sweep_phase(solo_s)
+    log(f"[sweep] total wall {time.perf_counter() - t_start:.1f} s")
+    # the simulator's main paths: [9]'s solo run and [sweep]'s lanes
+    launches.update({k: sim_launches[k] + swept[k] for k in sim_launches})
     held = cpu_route_phase()
     log(f"[10] blocked vs per-step f32 timeline keys: {held.count('bitwise')} "
         f"of {len(held)} cases bitwise, the rest to rtol 1e-6")

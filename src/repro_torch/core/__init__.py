@@ -1,7 +1,6 @@
 """Radiant core on PyTorch: page-table placement and migration for tiered
-memory (twin of the JAX package's ``core``; the reference's ``sweep``,
-``sweep_lanes``, ``stack_policies``, ``lane_mesh`` and
-``sweep_compile_count`` are not ported yet)."""
+memory (twin of the JAX package's ``core``; the reference's ``lane_mesh``
+is left out: the port's sweeps run on one device)."""
 from .config import (CostConfig, MachineConfig, PolicyConfig, FIRST_TOUCH,
                      INTERLEAVE, MIG_AUTONUMA, MIG_NOMAD, MIG_TPP,
                      PT_BIND_ALL, PT_BIND_HIGH, PT_FOLLOW_DATA,
@@ -10,6 +9,8 @@ from .config import (CostConfig, MachineConfig, PolicyConfig, FIRST_TOUCH,
 from .sim import (RunResult, TieredMemSimulator, Trace, fault_schedule,
                   fault_step_mask, pad_trace)
 from .state import SimState, init_state, is_dram, same_tier
+from .sweep import compile_count as sweep_compile_count
+from .sweep import stack_policies, sweep, sweep_lanes
 from .workloads import TraceSpec, trace_digest
 from . import workloads
 
@@ -22,5 +23,6 @@ __all__ = [
     "RunResult", "TieredMemSimulator", "Trace", "TraceSpec",
     "fault_schedule", "fault_step_mask",
     "pad_trace", "SimState", "init_state", "is_dram", "same_tier",
-    "trace_digest", "workloads",
+    "trace_digest", "workloads", "sweep", "sweep_lanes", "stack_policies",
+    "sweep_compile_count",
 ]

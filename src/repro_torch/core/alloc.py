@@ -150,11 +150,12 @@ def pt_bound(pt_policy: torch.Tensor, level_is_upper: bool,
         ((pt_policy == PT_BIND_HIGH) & (level_is_upper or thp))
 
 
-def _code(value, device) -> torch.Tensor:
-    """A policy code as an i32[1] lane tensor (a fill, not a host copy)."""
+def _code(value, device, L: int) -> torch.Tensor:
+    """A policy code as an i32[L] lane tensor (a fill, not a host copy,
+    when it is a Python int)."""
     if torch.is_tensor(value):
-        return value.to(device=device, dtype=I32).reshape(1)
-    return torch.full((1,), int(value), dtype=I32, device=device)
+        return value.to(device=device, dtype=I32).reshape(L)
+    return torch.full((L,), int(value), dtype=I32, device=device)
 
 
 def alloc_many(node_free, node_reclaimable, interleave_ptr, oom_killed, wm,
@@ -183,18 +184,26 @@ def alloc_many(node_free, node_reclaimable, interleave_ptr, oom_killed, wm,
     of those threads reset (-1 / False), which is how it runs here:
     ``ops.alloc_scan`` takes the slot row, and either way the step is one
     launch on the card.
+
+    ``L`` runs at once (a sweep's lanes) put a lane axis in front of every
+    argument but ``wm``: ``need_data[L, T]``, ``need_pt[L, T, 4]``,
+    ``node_free[L, N]``, the cursor, latch and policy codes ``[L]``,
+    ``slot_thread[L, G]``; the results then carry it too, and the call is
+    still one launch.
     """
     dev = node_free.device
-    T = need_data.shape[0]
+    solo = need_data.dim() == 1
+    L, T = (1, need_data.shape[0]) if solo else need_data.shape
     if slot_thread is not None:
-        slot_thread = slot_thread.to(I32).reshape(1, -1)
-    nodes, slow, ok, act, gate, free, rec, ptr, oom = ops.alloc_scan(
-        node_free.reshape(1, -1), node_reclaimable.reshape(1, -1),
-        interleave_ptr.reshape(1), oom_killed.reshape(1), wm,
-        _code(data_policy, dev), _code(pt_policy, dev),
-        need_pt.reshape(1, T, 4).contiguous(),
-        need_data.reshape(1, T).contiguous(), n_threads=mc.n_threads,
+        slot_thread = slot_thread.to(I32).reshape(L, -1).contiguous()
+    out = ops.alloc_scan(
+        node_free.reshape(L, -1).contiguous(),
+        node_reclaimable.reshape(L, -1).contiguous(),
+        interleave_ptr.reshape(L).contiguous(),
+        oom_killed.reshape(L).contiguous(), wm,
+        _code(data_policy, dev, L), _code(pt_policy, dev, L),
+        need_pt.reshape(L, T, 4).contiguous(),
+        need_data.reshape(L, T).contiguous(), n_threads=mc.n_threads,
         alloc_nodes=mc.alloc_nodes, thp=mc.page_order > 0,
         slot_thread=slot_thread)
-    return (nodes[0], slow[0], ok[0], act[0], gate[0], free[0], rec[0],
-            ptr[0], oom[0])
+    return tuple(x[0] for x in out) if solo else out

@@ -63,6 +63,7 @@ from . import migrate as migrate_mod
 from . import tlbs
 from .config import (CostConfig, MachineConfig, PolicyConfig, INTERLEAVE,
                      PT_BIND_HIGH, PT_FOLLOW_DATA)
+from .migrate import lane_lat
 from .state import SimState, init_state, is_dram
 from ..device import resolve_device
 from ..kernels import ops
@@ -375,34 +376,44 @@ TIMELINE_KEYS = ("total_cycles", "walk_cycles", "stall_cycles", "faults",
 
 def seg_of_leaf_table(trace: Trace, mc: MachineConfig, device) -> torch.Tensor:
     """i32[n_leaf]: the segment of each leaf page's first granule."""
-    n_leaf = mc.n_leaf_pages
-    leaf_first = (np.arange(n_leaf, dtype=np.int64) << mc.radix_bits) \
-        % max(mc.n_map, 1)
-    return torch.as_tensor(np.asarray(trace.seg_of_map, np.int32)[leaf_first],
-                           device=device)
+    return torch.as_tensor(_seg_of_leaf(trace, mc), device=device)
 
 
-def trace_xs(trace: Trace, mc: MachineConfig, pc: PolicyConfig,
-             start_step: int = 0, sched: Optional[np.ndarray] = None,
-             device=None):
-    """Per-step inputs for one trace, in the reference's order: ``(va,
-    is_write, free_seg, llc, sched, do_free, do_scan, has_fault, valid)``.
+def _seg_of_leaf(trace: Trace, mc: MachineConfig) -> np.ndarray:
+    leaf_first = (np.arange(mc.n_leaf_pages, dtype=np.int64)
+                  << mc.radix_bits) % max(mc.n_map, 1)
+    return np.asarray(trace.seg_of_map, np.int32)[leaf_first]
 
-    The rows the device reads (``va``, ``is_write``, ``sched``) are tensors
-    on ``device``; the rest are host numpy arrays, which the step loop
-    branches on or turns into Python numbers."""
+
+def stack_leaves(objs, device=None):
+    """``L`` configs of one dataclass (``CostConfig`` or ``PolicyConfig``)
+    as one whose fields are ``[L]`` tensors on ``device``, with the
+    reference's dtypes (``sweep._stack_leaves``): integers int32, floats
+    float32, flags bool."""
+    objs = list(objs)
     dev = resolve_device(device)
-    do_free = np.asarray(trace.free_seg) >= 0
-    do_scan = scan_step_mask(trace.n_steps, int(pc.autonuma_period),
-                             enabled=bool(pc.autonuma), start_step=start_step)
-    if sched is None:
-        sched = fault_schedule(trace, mc)
-    return (torch.as_tensor(np.asarray(trace.va, np.int32), device=dev),
-            torch.as_tensor(np.asarray(trace.is_write, bool), device=dev),
-            np.asarray(trace.free_seg, np.int32),
-            np.asarray(trace.llc, np.float32),
-            torch.as_tensor(sched, device=dev), do_free, do_scan,
-            (sched & SCHED_DO).any(axis=1), np.ones((trace.n_steps,), bool))
+    fields = {}
+    for f in dataclasses.fields(objs[0]):
+        a = np.stack([np.asarray(getattr(o, f.name)) for o in objs])
+        if a.dtype.kind in "iu":
+            a = a.astype(np.int32)
+        elif a.dtype.kind == "f":
+            a = a.astype(np.float32)
+        fields[f.name] = torch.as_tensor(a, device=dev)
+    return type(objs[0])(**fields)
+
+
+def lane_period(policies) -> int:
+    """The scan period the lanes share: that of every lane with AutoNUMA
+    on (the schedule is one host predicate for all of them), else the
+    first lane's."""
+    periods = sorted({int(p.autonuma_period) for p in policies
+                      if bool(p.autonuma)})
+    if len(periods) > 1:
+        raise ValueError(
+            f"swept policies must share autonuma_period, got {periods}; the "
+            "scan schedule is lane-shared")
+    return periods[0] if periods else int(policies[0].autonuma_period)
 
 
 # Timeline columns as the step loop keeps them: the f32 sums, then the
@@ -415,99 +426,179 @@ _TL_I32 = ("faults", "dram_free", "leaf_nvmm", "leaf_dram", "walks",
 
 def _set_where(arr: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor,
                mask: torch.Tensor) -> torch.Tensor:
-    """``arr`` with ``arr[idx[i]] = vals[i]`` where ``mask[i]``; the masked
-    rows' indices are unique, and the other rows go to a sentinel row past
-    the end that is sliced off (the reference drops them out of range)."""
-    n = arr.shape[0]
-    ext = torch.cat([arr, arr[:1]])
-    ext.index_copy_(0, torch.where(mask, idx, n).long(), vals)
-    return ext[:n]
+    """``arr`` (``[L, n]``) with ``arr[l, idx[l, i]] = vals[l, i]`` where
+    ``mask[l, i]``; each lane's masked indices are unique, and the other
+    entries go to a sentinel column past the end that is sliced off (the
+    reference drops them out of range)."""
+    n = arr.shape[-1]
+    ext = torch.cat([arr, arr[..., :1]], -1)
+    ext.scatter_(-1, torch.where(mask, idx, n).long(), vals)
+    return ext[..., :n].contiguous()
 
 
 class Stepper:
-    """One run of the per-step engine in progress.
+    """``L`` runs of the per-step engine in progress, one lane each (a
+    single run is ``L = 1``): lane ``l`` runs ``traces[l]`` under
+    ``ccs[l]`` and ``pcs[l]``.
 
     :meth:`TieredMemSimulator.run` is ``runner(trace).advance()`` then
     :meth:`result`; stepping in pieces gives the same state (a caller can
     time or profile a window of steps).  Everything the loop reads is put
-    on the device here, before the first step.  The blocked engine
+    on the device here, before the first step: the trace rows step-major
+    (``[S, L, ...]``; host arrays built once per distinct trace object and
+    fanned out to its lanes), every ``CostConfig`` / ``PolicyConfig``
+    value as a per-lane tensor (:func:`stack_leaves`).  The loop branches
+    only on host values that the lanes share: the union of the lanes'
+    frees and faults, and the one scan schedule.  The blocked engine
     (:class:`BlockedRunner`) drives one of these for its per-step spans.
+
+    ``budget`` is the scan's candidate bound (default: the lanes' largest
+    ``autonuma_budget``); ``group`` the allocator's slots per step
+    (default: the lanes' most winners in a step, a power of two, at most
+    ``n_threads``); a resumed ``state`` holds one run (``L = 1``).
     """
 
-    def __init__(self, sim: "TieredMemSimulator", trace: Trace,
-                 state: Optional[SimState] = None):
-        mc, cc, pc = sim.mc, sim.cc, sim.pc
-        dev = sim.device
-        if trace.va.shape[1] != mc.n_threads:
-            raise ValueError(f"trace has {trace.va.shape[1]} threads, machine "
-                             f"{mc.n_threads}")
-        self.mc, self.cc, self.pc = mc, cc, pc
-        self.trace = trace
-        self.sequential = sim.phase_b == "sequential"
+    def __init__(self, mc: MachineConfig, ccs, pcs, traces, *,
+                 phase_b: str = "batched", device=None,
+                 state: Optional[SimState] = None,
+                 budget: Optional[int] = None, group: Optional[int] = None):
+        self.mc, self.ccs, self.pcs = mc, list(ccs), list(pcs)
+        self.traces = list(traces)
+        L = self.L = len(self.traces)
+        if not (L > 0 and len(self.ccs) == len(self.pcs) == L):
+            raise ValueError(f"lane lists disagree: {len(self.ccs)} costs, "
+                             f"{len(self.pcs)} policies, {L} traces")
+        dev = resolve_device(device)
         T = mc.n_threads
-        self.budget = min(int(pc.autonuma_budget), mc.n_map)
-        sched = fault_schedule(trace, mc)      # memoized; computed once
-        group = min(pow2ceil(fault_group_bound(sched)), T)
+        shape = self.traces[0].va.shape
+        for tr in self.traces:
+            if tr.va.shape[1] != T:
+                raise ValueError(f"trace has {tr.va.shape[1]} threads, "
+                                 f"machine {T}")
+            if tr.va.shape != shape:
+                raise ValueError(f"lane traces must share one shape; got "
+                                 f"{tr.va.shape} vs {shape}")
+        self.sequential = phase_b == "sequential"
+        S = self.n_steps = shape[0]
+        self.budget = min(max(int(p.autonuma_budget) for p in self.pcs),
+                          mc.n_map) if budget is None else min(int(budget),
+                                                               mc.n_map)
+
+        # host arrays once per distinct trace object, fanned out to lanes
+        uniq: Dict[int, int] = {}
+        uniq_traces = []
+        lane_of = np.empty((L,), np.int64)
+        for i, tr in enumerate(self.traces):
+            j = uniq.setdefault(id(tr), len(uniq_traces))
+            if j == len(uniq_traces):
+                uniq_traces.append(tr)
+            lane_of[i] = j
+        scheds = [fault_schedule(tr, mc) for tr in uniq_traces]  # memoized
+        if group is None:
+            group = min(pow2ceil(max(fault_group_bound(sc) for sc in scheds)),
+                        T)
+        self.group = group
+
+        def lanes(per_trace, dtype):
+            """[S, L, ...]: the per-trace arrays, lane by lane."""
+            a = np.stack([np.asarray(x, dtype) for x in per_trace], axis=1)
+            return np.ascontiguousarray(a[:, lane_of])
 
         if state is None:
-            self.st = init_state(mc, dev)
+            self.st = init_state(mc, dev, lanes=L)
             self.start = 0
         else:
+            if np.ndim(state.data_node) == 1:       # one run's fields
+                state = state.with_lane_axis()
             self.st = state.to(dev)
-            self.start = int(np.asarray(state.step))
-        (self.va, self.is_write, self.free_seg, llc, self.sched, self.do_free,
-         self.do_scan, self.has_fault, _) = trace_xs(
-            trace, mc, pc, start_step=self.start, sched=sched, device=dev)
-        S = trace.n_steps
+            steps = np.unique(self.st.step.cpu().numpy())
+            if self.st.data_node.shape[0] != L or steps.size != 1:
+                raise ValueError("a resumed state holds the lanes' runs, "
+                                 "all at one step")
+            self.start = int(steps[0])
+        free_seg = lanes([tr.free_seg for tr in uniq_traces], np.int32)
+        self.do_free = (free_seg >= 0).any(axis=1)
+        self.has_fault = np.zeros((S,), bool)
+        for sc in scheds:
+            self.has_fault |= (sc & SCHED_DO).any(axis=1)
+        self.do_scan = scan_step_mask(
+            S, lane_period(self.pcs),
+            enabled=any(bool(p.autonuma) for p in self.pcs),
+            start_step=self.start)
+        self.va = torch.as_tensor(lanes([tr.va for tr in uniq_traces],
+                                        np.int32), device=dev)
+        self.is_write = torch.as_tensor(
+            lanes([tr.is_write for tr in uniq_traces], bool), device=dev)
+        self.sched = torch.as_tensor(lanes(scheds, np.uint8), device=dev)
+        self.fid = torch.as_tensor(free_seg, device=dev)
 
         # allocator conflict-group slots per step: the host winners' prefix
         # count, pad slots = T (alloc.alloc_many's slot_thread)
-        win = (sched & SCHED_WINNER) > 0
-        slot = np.cumsum(win, axis=1) - 1
-        slots = np.full((S, group), T, np.int32)
-        rows, cols = np.nonzero(win & (slot < group))
-        slots[rows, slot[rows, cols]] = cols
-        self.slots = torch.as_tensor(slots, device=dev)
+        slots = []
+        for sc in scheds:
+            win = (sc & SCHED_WINNER) > 0
+            slot = np.cumsum(win, axis=1) - 1
+            row = np.full((S, group), T, np.int32)
+            rows, cols = np.nonzero(win & (slot < group))
+            row[rows, slot[rows, cols]] = cols
+            slots.append(row)
+        self.slots = torch.as_tensor(lanes(slots, np.int32), device=dev)
 
         # bern: the seeds of sites 1-4 (leaf, mid, top, data) and each
-        # step's thresholds (the data site's follows the trace's llc)
-        self.site_seeds = torch.tensor([[_site_seed(s)] for s in (1, 2, 3, 4)],
+        # step's thresholds per lane (the data site's follows the trace's llc)
+        self.site_seeds = torch.tensor([[[_site_seed(s)]] for s in (1, 2, 3, 4)],
                                        dtype=torch.int64, device=dev)
-        thr = np.empty((S, 4, 1), np.int64)
-        thr[:, 0] = bern_threshold(cc.leaf_llc_hit)
-        thr[:, 1:3] = bern_threshold(cc.upper_llc_hit)
-        thr[:, 3, 0] = (llc.astype(np.float32) * np.float32(1 << 24)
-                        ).astype(np.int64)
+        thr = np.empty((S, L, 4), np.int64)
+        thr[:, :, 0] = [bern_threshold(cc.leaf_llc_hit) for cc in self.ccs]
+        thr[:, :, 1:3] = np.array([bern_threshold(cc.upper_llc_hit)
+                                   for cc in self.ccs])[:, None]
+        llc = lanes([tr.llc for tr in uniq_traces], np.float32)
+        thr[:, :, 3] = (llc * np.float32(1 << 24)).astype(np.int64)
         self.thr = torch.as_tensor(thr, device=dev)
+
+        # per-lane costs and policies: [L] (the scan), [L, 1] (per thread)
+        self.cc = stack_leaves(self.ccs, dev)
+        self.pc = stack_leaves(self.pcs, dev)
+        self.col = type(self.cc)(**{f.name: getattr(self.cc, f.name)[:, None]
+                                    for f in dataclasses.fields(self.cc)})
+        col = self.col
+        self.llc_hit, self.stlb_hit, self.cpu_work, self.stall_frac = (
+            x.to(F32) for x in (col.llc_hit, col.stlb_hit, col.cpu_work,
+                                col.data_stall_frac))
+        self.wait_cost = col.fault_base + self.llc_hit
+        self.window_costs = torch.cat([self.llc_hit, self.stlb_hit,
+                                       self.cpu_work, self.stall_frac], 1)
+        self.families = migrate_mod.ScanFamilies.of(self.pcs)
 
         self.tid = torch.arange(T, dtype=I32, device=dev)
         self.wm = alloc_mod.watermark_pages(mc, dev)
-        self.tables = migrate_mod.node_tables(cc, mc, dev)
-        self.data_policy = torch.full((1,), int(pc.data_policy), dtype=I32,
-                                      device=dev)
-        self.pt_policy = torch.full((1,), int(pc.pt_policy), dtype=I32,
-                                    device=dev)
-        self.seg_of_map = torch.as_tensor(np.asarray(trace.seg_of_map,
-                                                     np.int32), device=dev)
-        self.seg_of_leaf = seg_of_leaf_table(trace, mc, dev)
+        self.tables = migrate_mod.lane_tables(self.ccs, mc, dev)
+        self.seg_of_map = torch.as_tensor(
+            lanes([tr.seg_of_map for tr in uniq_traces], np.int32).T.copy(),
+            device=dev)
+        self.seg_of_leaf = torch.as_tensor(
+            lanes([_seg_of_leaf(tr, mc) for tr in uniq_traces], np.int32)
+            .T.copy(), device=dev)
         leaf_of_map = torch.arange(mc.n_map, device=dev) >> mc.radix_bits
         self.map_has_leaf = leaf_of_map < mc.n_leaf_pages
-        self.leaf_of_map = leaf_of_map.clamp(max=mc.n_leaf_pages - 1)
-        self.tl_f32 = torch.zeros((S, len(_TL_F32)), dtype=F32, device=dev)
-        self.tl_i32 = torch.zeros((S, len(_TL_I32)), dtype=I32, device=dev)
+        self.leaf_of_map = leaf_of_map.clamp(max=mc.n_leaf_pages - 1) \
+            .expand(L, -1)
+        self.tl_f32 = torch.zeros((S, L, len(_TL_F32)), dtype=F32, device=dev)
+        self.tl_i32 = torch.zeros((S, L, len(_TL_I32)), dtype=I32, device=dev)
         self.s = 0                          # steps done
 
     # ------------------------------ phase A --------------------------------
     def phase_a(self, s: int, now: int):
-        st, mc, cc = self.st, self.mc, self.cc
+        st, mc = self.st, self.mc
         rb = mc.radix_bits
         read_lat, write_lat = self.tables.read, self.tables.write
-        va_row, w_row = self.va[s], self.is_write[s]
+        va_row, w_row = self.va[s], self.is_write[s]          # [L, T]
         m = torch.where(va_row >= 0, va_row >> mc.map_shift, 0).clamp(
             0, mc.n_map - 1)
-        data_n = st.data_node.index_select(0, m)
+        ml = m.long()
+        data_n = st.data_node.gather(1, ml)
         mapped = data_n >= 0
-        active = (va_row >= 0) & ~st.oom_killed
+        active = (va_row >= 0) & ~st.oom_killed[:, None]
         vec = active & mapped
 
         hit1, way1, row1 = tlbs._probe(st.l1_tlb, m)
@@ -518,21 +609,22 @@ class Stepper:
         pde_hit, pde_way, row3 = tlbs._probe(st.pde_pwc, leaf_id)
         pdpte_hit, pdpte_way, row4 = tlbs._probe(st.pdpte_pwc, mid_id)
 
-        leaf_n = st.leaf_node.index_select(0, leaf_id)
-        mid_n = st.mid_node.index_select(
-            0, mid_id.clamp(max=st.mid_node.shape[0] - 1))
-        top_n = st.top_node.index_select(
-            0, top_id.clamp(max=st.top_node.shape[0] - 1))
+        leaf_n = st.leaf_node.gather(1, leaf_id.long())
+        mid_n = st.mid_node.gather(
+            1, mid_id.clamp(max=st.mid_node.shape[1] - 1).long())
+        top_n = st.top_node.gather(
+            1, top_id.clamp(max=st.top_node.shape[1] - 1).long())
 
         # the four draws of sites 1-4 (leaf, mid, top, data) at once
         draws = bern_hash(self.site_seeds, (
-            torch.stack([m, mid_id, top_id, m]), now, self.tid)) < self.thr[s]
+            torch.stack([m, mid_id, top_id, m]), now, self.tid)) \
+            < self.thr[s].T[:, :, None]
         leaf_llc, up1_llc, up2_llc, data_llc = draws.unbind(0)
 
-        llc_hit = float(cc.llc_hit)
-        leaf_read = torch.where(leaf_llc, llc_hit, read_lat[leaf_n.long() + 1])
+        llc_hit = self.llc_hit
+        leaf_read = torch.where(leaf_llc, llc_hit, lane_lat(read_lat, leaf_n))
         mid_read = torch.where(pde_hit, 0.0, torch.where(
-            up1_llc, llc_hit, read_lat[mid_n.long() + 1]))
+            up1_llc, llc_hit, lane_lat(read_lat, mid_n)))
         full = ~pde_hit & ~pdpte_hit
         root_read = torch.where(full, llc_hit, 0.0)
         reads = [~leaf_llc, ~pde_hit & ~up1_llc]
@@ -541,28 +633,28 @@ class Stepper:
             walk = leaf_read + mid_read + root_read
         else:
             top_read = torch.where(full, torch.where(
-                up2_llc, llc_hit, read_lat[top_n.long() + 1]), 0.0)
+                up2_llc, llc_hit, lane_lat(read_lat, top_n)), 0.0)
             walk = leaf_read + mid_read + top_read + root_read
             reads.append(full & ~up2_llc)
         walk_cost = torch.where(walkn, walk, 0.0)
-        walk_reads = (torch.stack(reads) & walkn).sum(dtype=I32)
+        walk_reads = (torch.stack(reads) & walkn).sum((0, 2), dtype=I32)
 
-        dl = data_n.long() + 1
-        mem_lat = torch.where(w_row, write_lat[dl], read_lat[dl])
+        mem_lat = torch.where(w_row, lane_lat(write_lat, data_n),
+                              lane_lat(read_lat, data_n))
         data_cost = torch.where(vec, torch.where(data_llc, llc_hit, mem_lat),
                                 0.0)
 
-        tlb_penalty = torch.where(vec & ~hit1, float(cc.stlb_hit), 0.0)
-        stall = walk_cost + cc.data_stall_frac * data_cost
-        total = torch.where(vec, float(cc.cpu_work), 0.0) + tlb_penalty + stall
+        tlb_penalty = torch.where(vec & ~hit1, self.stlb_hit, 0.0)
+        stall = walk_cost + self.stall_frac * data_cost
+        total = torch.where(vec, self.cpu_work, 0.0) + tlb_penalty + stall
 
         tlbs._write(st.l1_tlb, row1, way1, m, now, vec)
         tlbs._write(st.stlb, row2, way2, m, now, vec & ~hit1)
         tlbs._write(st.pde_pwc, row3, pde_way, leaf_id, now, walkn)
         tlbs._write(st.pdpte_pwc, row4, pdpte_way, mid_id, now, walkn)
 
-        st.access_recent.index_add_(0, m, vec.to(I32))
-        st.written_recent.index_add_(0, m, (vec & w_row).to(I32))
+        st.access_recent.scatter_add_(1, ml, vec.to(I32))
+        st.written_recent.scatter_add_(1, ml, (vec & w_row).to(I32))
 
         cyc = st.cycles
         cyc.total += total
@@ -570,9 +662,9 @@ class Stepper:
         cyc.stall += stall
         cyc.data_mem += data_cost
         c = st.counters
-        c.l1_hits += (vec & hit1).sum(dtype=I32)
-        c.stlb_hits += (vec & ~hit1 & hit2).sum(dtype=I32)
-        c.walks += walkn.sum(dtype=I32)
+        c.l1_hits += (vec & hit1).sum(1, dtype=I32)
+        c.stlb_hits += (vec & ~hit1 & hit2).sum(1, dtype=I32)
+        c.walks += walkn.sum(1, dtype=I32)
         c.walk_mem_reads += walk_reads
         return m, active & ~mapped
 
@@ -580,36 +672,38 @@ class Stepper:
     def phase_b(self, s: int, now: int, m: torch.Tensor,
                 fault_mask: torch.Tensor):
         """The batched fault engine: first-thread-wins masks from live
-        state, the serialized allocator, then vectorized commits."""
-        st, mc, cc = self.st, self.mc, self.cc
-        T, rb, nn = mc.n_threads, mc.radix_bits, mc.n_nodes
+        state, the serialized allocator (one launch for every lane), then
+        vectorized commits."""
+        st, mc, col = self.st, self.mc, self.col
+        T, rb, nn, L = mc.n_threads, mc.radix_bits, mc.n_nodes, self.L
         read_lat, write_lat = self.tables.read, self.tables.write
-        sched_row, w_row = self.sched[s], self.is_write[s]
+        sched_row, w_row = self.sched[s], self.is_write[s]    # [L, T]
         do = ((sched_row & int(SCHED_DO)) > 0) & fault_mask
         winner = ((sched_row & int(SCHED_WINNER)) > 0) & fault_mask
-        tid = self.tid
+        tid = self.tid.expand(L, T)
+        ml = m.long()
 
         leaf_idx = m >> rb
         pt_idx = (torch.zeros_like(m),
-                  (m >> (3 * rb)).clamp(max=st.top_node.shape[0] - 1),
-                  (m >> (2 * rb)).clamp(max=st.mid_node.shape[0] - 1),
+                  (m >> (3 * rb)).clamp(max=st.top_node.shape[1] - 1),
+                  (m >> (2 * rb)).clamp(max=st.mid_node.shape[1] - 1),
                   leaf_idx)
         pt_arrs = (st.root_node, st.top_node, st.mid_node, st.leaf_node)
         need_cols = []
         for idx, arr in zip(pt_idx, pt_arrs):
-            n_e = arr.shape[0]
-            cand = winner & (arr.index_select(0, idx) < 0)
+            n_e = arr.shape[1]
+            il = idx.long()
+            cand = winner & (arr.gather(1, il) < 0)
             # scatter-min of thread ids per missing entry: the first winner
-            first = torch.full((n_e + 1,), T, dtype=I32, device=m.device)
-            first.scatter_reduce_(0, torch.where(cand, idx, n_e).long(), tid,
-                                  "amin")
-            need_cols.append(cand & (first.index_select(0, idx) == tid))
-        need_pt = torch.stack(need_cols, dim=-1)                 # bool[T, 4]
+            first = torch.full((L, n_e + 1), T, dtype=I32, device=m.device)
+            first.scatter_reduce_(1, torch.where(cand, il, n_e), tid, "amin")
+            need_cols.append(cand & (first.gather(1, il) == tid))
+        need_pt = torch.stack(need_cols, dim=-1)              # bool[L, T, 4]
 
         nodes, slow, ok, act, gate, nfree, nrec, ptr, oom = \
             alloc_mod.alloc_many(st.node_free, st.node_reclaimable,
                                  st.interleave_ptr, st.oom_killed, self.wm,
-                                 self.data_policy, self.pt_policy, mc,
+                                 self.pc.data_policy, self.pc.pt_policy, mc,
                                  need_pt, winner, slot_thread=self.slots[s])
         fault = winner & gate          # threads that run the fault handler
         wait = do & ~winner & gate     # an earlier thread mapped m this step
@@ -619,31 +713,32 @@ class Stepper:
         # data pages ------------------------------------------------------
         commit = act & ok
         st.root_node, st.top_node, st.mid_node, st.leaf_node = (
-            _set_where(arr, idx, nodes[:, lvl], commit[:, lvl])
+            _set_where(arr, idx, nodes[..., lvl], commit[..., lvl])
             for lvl, (idx, arr) in enumerate(zip(pt_idx, pt_arrs)))
-        node_d, ok_d, commit_d = nodes[:, 4], ok[:, 4], commit[:, 4]
+        node_d, ok_d, commit_d = nodes[..., 4], ok[..., 4], commit[..., 4]
         st.data_node = _set_where(st.data_node, m, node_d, commit_d)
-        st.leaf_dram_children.index_add_(
-            0, leaf_idx, (commit_d & is_dram(node_d)).to(I32))
+        st.leaf_dram_children.scatter_add_(
+            1, leaf_idx.long(), (commit_d & is_dram(node_d)).to(I32))
 
         # ---- cost model: the sequential per-thread f32 chains ----------
-        alloc_cost = torch.where(slow, float(cc.alloc_slow),
-                                 float(cc.alloc_fast))
-        zero_cost = cc.zero_lines * write_lat[nodes.long() + 1]
-        c = torch.zeros((T,), dtype=F32, device=m.device)
+        alloc_cost = torch.where(slow, col.alloc_slow[..., None],
+                                 col.alloc_fast[..., None])
+        zero_cost = col.zero_lines[..., None] * lane_lat(write_lat, nodes)
+        oom_scan = col.oom_scan
+        c = torch.zeros((L, T), dtype=F32, device=m.device)
         for lvl in range(4):
-            do_l = commit[:, lvl]
-            c = c + torch.where(do_l, zero_cost[:, lvl], 0.0) \
-                + torch.where(do_l, alloc_cost[:, lvl], 0.0) \
-                + torch.where(act[:, lvl] & ~ok[:, lvl], float(cc.oom_scan), 0.0)
-        c = c + torch.where(ok_d, zero_cost[:, 4] + alloc_cost[:, 4],
-                            float(cc.oom_scan))
-        mid_n = st.mid_node.index_select(0, pt_idx[2])   # post-commit
-        leaf_n = st.leaf_node.index_select(0, leaf_idx)
-        c = c + cc.fault_base + read_lat[mid_n.long() + 1] \
-            + write_lat[leaf_n.long() + 1]
+            do_l = commit[..., lvl]
+            c = c + torch.where(do_l, zero_cost[..., lvl], 0.0) \
+                + torch.where(do_l, alloc_cost[..., lvl], 0.0) \
+                + torch.where(act[..., lvl] & ~ok[..., lvl], oom_scan, 0.0)
+        c = c + torch.where(ok_d, zero_cost[..., 4] + alloc_cost[..., 4],
+                            oom_scan)
+        mid_n = st.mid_node.gather(1, pt_idx[2].long())   # post-commit
+        leaf_n = st.leaf_node.gather(1, leaf_idx.long())
+        c = c + col.fault_base + lane_lat(read_lat, mid_n) \
+            + lane_lat(write_lat, leaf_n)
         fcost = torch.where(fault, c, 0.0)
-        wait_cost = torch.where(wait, cc.fault_base + float(cc.llc_hit), 0.0)
+        wait_cost = torch.where(wait, self.wait_cost, 0.0)
         all_cost = fcost + wait_cost
 
         # ---- TLB fills: thread-private, so touch-or-insert vectorizes --
@@ -651,71 +746,75 @@ class Stepper:
                          (st.pde_pwc, leaf_idx), (st.pdpte_pwc, m >> (2 * rb))):
             _, way, row = tlbs._probe(tlb, tag)
             tlbs._write(tlb, row, way, tag, now, handled)
-        st.access_recent.index_add_(0, m, handled.to(I32))
-        st.written_recent.index_add_(0, m, (handled & w_row).to(I32))
+        st.access_recent.scatter_add_(1, ml, handled.to(I32))
+        st.written_recent.scatter_add_(1, ml, (handled & w_row).to(I32))
 
         # ---- counters and OOM latch -------------------------------------
         fails = act & ~ok
-        pt_commit = commit[:, :4]
+        pt_commit = commit[..., :4]
         cnt = st.counters
-        cnt.pt_allocs.index_add_(0, nodes[:, :4].clamp(0, nn - 1).reshape(-1),
-                                 pt_commit.reshape(-1).to(I32))
-        cnt.data_allocs.index_add_(0, node_d.clamp(0, nn - 1),
-                                   commit_d.to(I32))
-        cnt.slow_allocs += (pt_commit & slow[:, :4]).sum(dtype=I32)
-        cnt.faults += fault.sum(dtype=I32)
-        cnt.oom_kills += fails.sum(dtype=I32)
+        cnt.pt_allocs.scatter_add_(
+            1, nodes[..., :4].clamp(0, nn - 1).reshape(L, -1).long(),
+            pt_commit.reshape(L, -1).to(I32))
+        cnt.data_allocs.scatter_add_(1, node_d.clamp(0, nn - 1).long(),
+                                     commit_d.to(I32))
+        cnt.slow_allocs += (pt_commit & slow[..., :4]).sum((1, 2), dtype=I32)
+        cnt.faults += fault.sum(1, dtype=I32)
+        cnt.oom_kills += fails.sum((1, 2), dtype=I32)
         cyc = st.cycles
         cyc.total += all_cost
         cyc.fault += all_cost
-        cyc.data_mem += torch.where(wait, float(cc.llc_hit), 0.0)
+        cyc.data_mem += torch.where(wait, self.llc_hit, 0.0)
         st.node_free, st.node_reclaimable = nfree, nrec
         st.interleave_ptr, st.oom_killed = ptr, oom
-        st.oom_step = torch.where(fails.any() & (st.oom_step < 0), now,
-                                  st.oom_step)
+        st.oom_step = torch.where(fails.flatten(1).any(1) & (st.oom_step < 0),
+                                  now, st.oom_step)
 
     # ------------------------- phase B, sequential --------------------------
     def phase_b_sequential(self, s: int, now: int, m: torch.Tensor,
                            fault_mask: torch.Tensor):
         """The reference's per-thread fault loop (``phase_b_body``), the
-        threads in order.  Its ``lax.cond`` on a thread's fault reads
-        device state, so here every update is masked by the thread's own
-        predicates instead: the loop branches on host values only."""
-        st, cc = self.st, self.cc
+        threads in order, each thread's work vectorized over the lanes.
+        Its ``lax.cond`` on a thread's fault reads device state, so here
+        every update is masked by the thread's own predicates instead: the
+        loop branches on host values only."""
+        st = self.st
         rb = self.mc.radix_bits
-        llc_hit = float(cc.llc_hit)
         w_row = self.is_write[s]
         cyc = st.cycles
         for t in range(self.mc.n_threads):
-            m_t = m[t:t + 1]
-            do = fault_mask[t] & ~st.oom_killed
-            now_mapped = st.data_node.index_select(0, m_t) >= 0
+            m_t = m[:, t:t + 1]                                 # [L, 1]
+            do = fault_mask[:, t:t + 1] & ~st.oom_killed[:, None]
+            now_mapped = st.data_node.gather(1, m_t.long()) >= 0
             wait = do & now_mapped
             fault = do & ~now_mapped
-            wait_cost = torch.where(wait, cc.fault_base + llc_hit, 0.0)
+            wait_cost = torch.where(wait, self.wait_cost, 0.0)
             fcost = self._fault_sequential(t, m_t, fault, now)
             handled = wait | fault
             for tlb, tag in ((st.l1_tlb, m_t), (st.stlb, m_t),
                              (st.pde_pwc, m_t >> rb),
                              (st.pdpte_pwc, m_t >> (2 * rb))):
                 tlbs.update_one(tlb, t, tag, now, handled)
-            st.access_recent.index_add_(0, m_t, handled.to(I32))
-            st.written_recent.index_add_(0, m_t, (handled & w_row[t]).to(I32))
+            st.access_recent.scatter_add_(1, m_t.long(), handled.to(I32))
+            st.written_recent.scatter_add_(
+                1, m_t.long(), (handled & w_row[:, t:t + 1]).to(I32))
             all_cost = fcost + wait_cost
-            cyc.total[t:t + 1].add_(all_cost)
-            cyc.fault[t:t + 1].add_(all_cost)
-            cyc.data_mem[t:t + 1].add_(torch.where(wait, llc_hit, 0.0))
+            cyc.total[:, t:t + 1] += all_cost
+            cyc.fault[:, t:t + 1] += all_cost
+            cyc.data_mem[:, t:t + 1] += torch.where(wait, self.llc_hit, 0.0)
 
     def _alloc_pt_level(self, t: int, arr: torch.Tensor, idx: torch.Tensor,
                         is_upper: bool, c: torch.Tensor, now: int,
                         gate: torch.Tensor) -> torch.Tensor:
         """One PT level of thread ``t``'s fault (the reference's
-        ``_alloc_pt_level``), where ``gate`` (the thread faults) holds;
-        updates ``arr`` in place and returns the cost chain ``c``."""
-        st, mc, cc = self.st, self.mc, self.cc
+        ``_alloc_pt_level``) in every lane, where ``gate`` (``[L, 1]``: the
+        thread faults) holds; updates ``arr`` in place and returns the cost
+        chain ``c``."""
+        st, mc, col = self.st, self.mc, self.col
+        L = self.L
         thp = mc.page_order > 0
-        tid, dpol, ppol = self.tid[t], self.data_policy[0], self.pt_policy[0]
-        old = arr.index_select(0, idx)
+        tid, dpol, ppol = self.tid[t], self.pc.data_policy, self.pc.pt_policy
+        old = arr.gather(1, idx.long())
         missing = gate & (old < 0)
         # recompute per allocation: the interleave cursor advances with
         # every page handed out
@@ -732,102 +831,111 @@ class Stepper:
             use_fb = is_bhi & ~ok
             node = torch.where(use_fb, node2, node)
             slow = torch.where(use_fb, slow2, slow)
-            nf = torch.where(use_fb, nf2, nf)
-            nr = torch.where(use_fb, nr2, nr)
+            nf = torch.where(use_fb[:, None], nf2, nf)
+            nr = torch.where(use_fb[:, None], nr2, nr)
             ok = ok | (is_bhi & ok2)
-        node = node.reshape(1)
+        node, slow, ok = (x.reshape(L, 1) for x in (node, slow, ok))
         oom = missing & ~ok            # bind_all pathology (section 3.5)
         do = missing & ok
-        arr.index_copy_(0, idx.long(), torch.where(do, node, old))
+        arr.scatter_(1, idx.long(), torch.where(do, node, old))
         zero_cost = torch.where(
-            do, cc.zero_lines * self.tables.write[node.long() + 1], 0.0)
-        acost = torch.where(do, torch.where(slow, float(cc.alloc_slow),
-                                            float(cc.alloc_fast)), 0.0)
-        adv = do & (ppol == PT_FOLLOW_DATA) & (dpol == INTERLEAVE)
+            do, col.zero_lines * lane_lat(self.tables.write, node), 0.0)
+        acost = torch.where(do, torch.where(slow, col.alloc_slow,
+                                            col.alloc_fast), 0.0)
+        adv = do & (ppol == PT_FOLLOW_DATA)[:, None] \
+            & (dpol == INTERLEAVE)[:, None]
         st.node_free = torch.where(do, nf, st.node_free)
         st.node_reclaimable = torch.where(do, nr, st.node_reclaimable)
-        st.interleave_ptr = st.interleave_ptr + adv.to(I32).reshape(())
-        st.oom_killed = st.oom_killed | oom.reshape(())
-        st.oom_step = torch.where(oom.reshape(()) & (st.oom_step < 0), now,
+        st.interleave_ptr = st.interleave_ptr + adv.to(I32).reshape(L)
+        st.oom_killed = st.oom_killed | oom.reshape(L)
+        st.oom_step = torch.where(oom.reshape(L) & (st.oom_step < 0), now,
                                   st.oom_step)
         cnt = st.counters
-        cnt.pt_allocs.index_add_(0, node.clamp(0, mc.n_nodes - 1),
-                                 do.to(I32))
-        cnt.slow_allocs += (do & slow).to(I32).reshape(())
-        cnt.oom_kills += oom.to(I32).reshape(())
-        return c + zero_cost + acost + torch.where(oom, float(cc.oom_scan), 0.0)
+        cnt.pt_allocs.scatter_add_(1, node.clamp(0, mc.n_nodes - 1).long(),
+                                   do.to(I32))
+        cnt.slow_allocs += (do & slow).to(I32).reshape(L)
+        cnt.oom_kills += oom.to(I32).reshape(L)
+        return c + zero_cost + acost + torch.where(oom, col.oom_scan, 0.0)
 
     def _fault_sequential(self, t: int, m_t: torch.Tensor,
                           fault: torch.Tensor, now: int) -> torch.Tensor:
-        """Thread ``t``'s fault handler (the reference's ``run_fault``),
-        masked by ``fault``: the four PT levels, then the data page.
-        Returns its cycles (0 where it does not fault)."""
-        st, mc, cc = self.st, self.mc, self.cc
+        """Thread ``t``'s fault handler (the reference's ``run_fault``) in
+        every lane, masked by ``fault`` (``[L, 1]``): the four PT levels,
+        then the data page.  Returns its cycles (0 where it does not
+        fault)."""
+        st, mc, col = self.st, self.mc, self.col
+        L = self.L
         rb = mc.radix_bits
         read_lat, write_lat = self.tables.read, self.tables.write
-        c = torch.zeros((1,), dtype=F32, device=m_t.device)
+        dpol = self.pc.data_policy
+        c = torch.zeros((L, 1), dtype=F32, device=m_t.device)
         levels = ((st.root_node, torch.zeros_like(m_t), True),
                   (st.top_node,
-                   (m_t >> (3 * rb)).clamp(max=st.top_node.shape[0] - 1), True),
+                   (m_t >> (3 * rb)).clamp(max=st.top_node.shape[1] - 1), True),
                   (st.mid_node,
-                   (m_t >> (2 * rb)).clamp(max=st.mid_node.shape[0] - 1), True),
+                   (m_t >> (2 * rb)).clamp(max=st.mid_node.shape[1] - 1), True),
                   (st.leaf_node, m_t >> rb, False))
         for arr, idx, is_upper in levels:     # each updated in place
             c = self._alloc_pt_level(t, arr, idx, is_upper, c, now, fault)
 
-        dprefs = alloc_mod.data_prefs_for(self.data_policy[0], self.tid[t], mc,
+        dprefs = alloc_mod.data_prefs_for(dpol, self.tid[t], mc,
                                           st.interleave_ptr)
         node, slow, nf, nr, ok = alloc_mod.alloc_one(
             st.node_free, st.node_reclaimable, dprefs, self.wm, False)
-        node = node.reshape(1)
+        node, slow, ok = (x.reshape(L, 1) for x in (node, slow, ok))
         done = fault & ok
         oom = fault & ~ok
-        st.data_node.index_copy_(0, m_t.long(), torch.where(
-            fault, torch.where(ok, node, -1), st.data_node.index_select(0, m_t)))
+        ml = m_t.long()
+        st.data_node.scatter_(1, ml, torch.where(
+            fault, torch.where(ok, node, -1), st.data_node.gather(1, ml)))
         leaf_i = m_t >> rb
-        st.leaf_dram_children.index_add_(0, leaf_i,
-                                         (done & is_dram(node)).to(I32))
-        adv = (self.data_policy[0] == INTERLEAVE) & done
-        c = c + torch.where(ok, cc.zero_lines * write_lat[node.long() + 1]
-                            + torch.where(slow, float(cc.alloc_slow),
-                                          float(cc.alloc_fast)),
-                            float(cc.oom_scan))
-        mid_n = st.mid_node.index_select(
-            0, (m_t >> (2 * rb)).clamp(max=st.mid_node.shape[0] - 1))
-        leaf_n = st.leaf_node.index_select(0, leaf_i)
-        c = c + cc.fault_base + read_lat[mid_n.long() + 1] \
-            + write_lat[leaf_n.long() + 1]
+        st.leaf_dram_children.scatter_add_(1, leaf_i.long(),
+                                           (done & is_dram(node)).to(I32))
+        adv = (dpol == INTERLEAVE)[:, None] & done
+        c = c + torch.where(ok, col.zero_lines * lane_lat(write_lat, node)
+                            + torch.where(slow, col.alloc_slow, col.alloc_fast),
+                            col.oom_scan)
+        mid_n = st.mid_node.gather(
+            1, (m_t >> (2 * rb)).clamp(max=st.mid_node.shape[1] - 1).long())
+        leaf_n = st.leaf_node.gather(1, leaf_i.long())
+        c = c + col.fault_base + lane_lat(read_lat, mid_n) \
+            + lane_lat(write_lat, leaf_n)
         st.node_free = torch.where(done, nf, st.node_free)
         st.node_reclaimable = torch.where(done, nr, st.node_reclaimable)
-        st.interleave_ptr = st.interleave_ptr + adv.to(I32).reshape(())
-        st.oom_killed = st.oom_killed | oom.reshape(())
-        st.oom_step = torch.where(oom.reshape(()) & (st.oom_step < 0), now,
+        st.interleave_ptr = st.interleave_ptr + adv.to(I32).reshape(L)
+        st.oom_killed = st.oom_killed | oom.reshape(L)
+        st.oom_step = torch.where(oom.reshape(L) & (st.oom_step < 0), now,
                                   st.oom_step)
         cnt = st.counters
-        cnt.data_allocs.index_add_(0, node.clamp(0, mc.n_nodes - 1),
-                                   done.to(I32))
-        cnt.faults += fault.to(I32).reshape(())
-        cnt.oom_kills += oom.to(I32).reshape(())
+        cnt.data_allocs.scatter_add_(1, node.clamp(0, mc.n_nodes - 1).long(),
+                                     done.to(I32))
+        cnt.faults += fault.to(I32).reshape(L)
+        cnt.oom_kills += oom.to(I32).reshape(L)
         return torch.where(fault, c, 0.0)
 
     # ------------------------------ frees -----------------------------------
-    def free_segment(self, fid: int):
-        st, nn = self.st, self.mc.n_nodes
+    def free_segment(self, fid: torch.Tensor):
+        """Each lane's segment ``fid[l]`` (``i32[L]``) exits; a lane whose
+        ``fid`` is -1 is unchanged."""
+        st, nn, L = self.st, self.mc.n_nodes, self.L
 
         def per_node(node, mask):
-            out = torch.zeros((nn,), dtype=I32, device=node.device)
-            return out.index_add_(0, node.clamp(0, nn - 1), mask.to(I32))
+            out = torch.zeros((L, nn), dtype=I32, device=node.device)
+            return out.scatter_add_(1, node.clamp(0, nn - 1).long(),
+                                    mask.to(I32))
 
-        in_seg = self.seg_of_map == fid
+        live = (fid >= 0)[:, None]
+        in_seg = (self.seg_of_map == fid[:, None]) & live
         mask_map = in_seg & (st.data_node >= 0)
         freed_per_node = per_node(st.data_node, mask_map)
         freed_dram = mask_map & is_dram(st.data_node) & self.map_has_leaf
-        ldc = st.leaf_dram_children.index_add(0, self.leaf_of_map,
-                                              -freed_dram.to(I32))
+        ldc = st.leaf_dram_children.scatter_add(1, self.leaf_of_map,
+                                                -freed_dram.to(I32))
         # Nomad shadows of freed granules are released with the segment.
         mask_shadow = in_seg & (st.shadow_node >= 0)
         freed_shadow = per_node(st.shadow_node, mask_shadow)
-        mask_leaf = (self.seg_of_leaf == fid) & (st.leaf_node >= 0)
+        mask_leaf = (self.seg_of_leaf == fid[:, None]) & live \
+            & (st.leaf_node >= 0)
         freed_leaf = per_node(st.leaf_node, mask_leaf)
         st.data_node = torch.where(mask_map, -1, st.data_node)
         st.shadow_node = torch.where(mask_shadow, -1, st.shadow_node)
@@ -842,19 +950,21 @@ class Stepper:
 
     # ------------------------------ scan tick --------------------------------
     def scan_op(self, s: int):
-        """One AutoNUMA/TPP/Nomad scan and its cycle accounting: the
-        migration daemon's cycles, scaled, spread over the threads."""
+        """One AutoNUMA/TPP/Nomad scan in every lane (a lane with the scan
+        off, or OOM-killed, is an exact no-op) and its cycle accounting:
+        the migration daemon's cycles, scaled, spread over the threads."""
         st, cost = migrate_mod.autonuma_scan(
             self.st, self.mc, self.cc, self.pc, self.wm, self.budget,
-            self.va[s], self.is_write[s], self.tables)
-        st.cycles.total += cost * self.cc.mig_cost_scale / self.mc.n_threads
+            self.va[s], self.is_write[s], self.tables, self.families)
+        st.cycles.total += (cost * self.cc.mig_cost_scale
+                            / self.mc.n_threads)[:, None]
         st.cycles.migration += cost
 
     # ------------------------------ full step --------------------------------
     def advance(self, n_steps: Optional[int] = None) -> "Stepper":
         """Run the next ``n_steps`` steps (all that are left by default)."""
-        hi = self.trace.n_steps if n_steps is None else \
-            min(self.s + int(n_steps), self.trace.n_steps)
+        hi = self.n_steps if n_steps is None else \
+            min(self.s + int(n_steps), self.n_steps)
         for s in range(self.s, hi):
             self.step(s)
         self.s = hi
@@ -862,16 +972,16 @@ class Stepper:
         return self
 
     def step(self, s: int):
-        """Step ``s`` of the trace: free, scan tick, phase A, phase B (on a
-        step with a fault), timeline row."""
+        """Step ``s`` of the lanes' traces: frees, scan tick, phase A,
+        phase B (on a step where some lane faults), timeline row."""
         now = self.start + s
         if self.do_free[s]:
-            self.free_segment(int(self.free_seg[s]))
+            self.free_segment(self.fid[s])
         if self.do_scan[s]:
             self.scan_op(s)
         m, fault_mask = self.phase_a(s, now)
         # faults are bursty (populate) or rare (steady state): skip the
-        # fault engine entirely on fault-free steps
+        # fault engine entirely on steps where no lane faults
         if self.has_fault[s]:
             phase_b = self.phase_b_sequential if self.sequential \
                 else self.phase_b
@@ -882,24 +992,33 @@ class Stepper:
         st = self.st
         cyc, c = st.cycles, st.counters
         sums = torch.stack([cyc.total, cyc.walk, cyc.stall, cyc.data_mem,
-                            cyc.fault]).sum(1)
-        torch.cat([sums, cyc.migration.reshape(1)], out=self.tl_f32[s])
+                            cyc.fault]).sum(2)
+        torch.cat([sums.T, cyc.migration[:, None]], 1, out=self.tl_f32[s])
         leaf = st.leaf_node
-        torch.stack([c.faults, st.node_free[:2].sum(dtype=I32),
-                     (leaf >= 2).sum(dtype=I32),
-                     ((leaf >= 0) & (leaf < 2)).sum(dtype=I32), c.walks,
+        torch.stack([c.faults, st.node_free[:, :2].sum(1, dtype=I32),
+                     (leaf >= 2).sum(1, dtype=I32),
+                     ((leaf >= 0) & (leaf < 2)).sum(1, dtype=I32), c.walks,
                      c.data_migrations, c.l4_mig_success, c.l1_hits,
-                     c.stlb_hits], out=self.tl_i32[s])
+                     c.stlb_hits], 1, out=self.tl_i32[s])
 
-    def result(self) -> RunResult:
-        """The steps run so far as a :class:`RunResult` (host numpy)."""
+    def results(self) -> "list[RunResult]":
+        """The steps run so far, a :class:`RunResult` (host numpy) per
+        lane."""
         f32, i32 = (t[:self.s].cpu().numpy() for t in (self.tl_f32, self.tl_i32))
-        cols = {**{k: f32[:, i] for i, k in enumerate(_TL_F32)},
-                **{k: i32[:, i] for i, k in enumerate(_TL_I32)}}
-        return RunResult(final_state=self.st.to_numpy(),
-                         timeline={k: cols[k].copy() for k in TIMELINE_KEYS},
-                         trace_name=self.trace.name,
-                         policy_label=self.pc.label())
+        st = self.st.to_numpy()
+        out = []
+        for lane, (pc, tr) in enumerate(zip(self.pcs, self.traces)):
+            cols = {**{k: f32[:, lane, i] for i, k in enumerate(_TL_F32)},
+                    **{k: i32[:, lane, i] for i, k in enumerate(_TL_I32)}}
+            out.append(RunResult(
+                final_state=st.lane(lane),
+                timeline={k: cols[k].copy() for k in TIMELINE_KEYS},
+                trace_name=tr.name, policy_label=pc.label()))
+        return out
+
+    def result(self, lane: int = 0) -> RunResult:
+        """Lane ``lane``'s steps run so far as a :class:`RunResult`."""
+        return self.results()[lane]
 
 
 # --------------------------- time-blocked engine ------------------------------
@@ -1146,67 +1265,72 @@ def window_ops(plan: WindowPlan, n_steps: int):
 
 
 def fast_window_tile(stepper: Stepper, s0: int, s1: int) -> None:
-    """Steps ``s0..s1-1`` of ``stepper``'s run, an event-free segment (no
-    free, no scan tick, no fault), as the reference's ``fast_window``.
+    """Steps ``s0..s1-1`` of ``stepper``'s lanes, an event-free segment (no
+    lane frees, scans or faults there), as the reference's
+    ``fast_window``.
 
     Placements are constant over such a segment, so one ``ops.fast_window``
-    launch does all of it: the gathers, Bernoulli draws (``Stepper``'s site
-    seeds and thresholds) and latency terms, the TLB and page-walk-cache
-    chain, the hotness counts and the counters.  Mapped-ness needs no
-    check: host-mapped is a subset of device-mapped, so every active access
-    hits a mapped page.  The timeline rows are the segment's constant
-    columns (``_record`` at ``s0``), to which the launch adds each row's
-    counts, and the per-row sums over the threads of the kernel's
-    accumulators (the same reduction as ``Stepper._record``)."""
-    st, mc, cc = stepper.st, stepper.mc, stepper.cc
+    launch does all of it for every lane: the gathers, Bernoulli draws
+    (``Stepper``'s site seeds and thresholds) and latency terms with each
+    lane's costs, the TLB and page-walk-cache chain, the hotness counts
+    and the counters.  Mapped-ness needs no check: host-mapped is a subset
+    of device-mapped, so every active access hits a mapped page.  The
+    trace rows go in as views of the step-major tables.  The timeline rows
+    are the segment's constant columns (``_record`` at ``s0``), to which
+    the launch adds each row's counts, and the per-row sums over the
+    threads of the kernel's accumulators (the same reduction as
+    ``Stepper._record``)."""
+    st, mc = stepper.st, stepper.mc
     stepper._record(s0)
-    tl_f, tl_i = stepper.tl_f32[s0:s1], stepper.tl_i32[s0:s1]
+    tl_f, tl_i = stepper.tl_f32[s0:s1], stepper.tl_i32[s0:s1]   # [R, L, .]
     tl_f[1:] = tl_f[0]
     tl_i[1:] = tl_i[0]
     cyc, c = st.cycles, st.counters
     cum = ops.fast_window(
-        stepper.va[s0:s1][None], stepper.is_write[s0:s1][None],
-        stepper.thr[s0:s1].view(1, s1 - s0, 4), st.oom_killed.view(1),
-        [a[None] for a in (st.data_node, st.leaf_node, st.mid_node,
-                           st.top_node)],
+        stepper.va[s0:s1].transpose(0, 1),
+        stepper.is_write[s0:s1].transpose(0, 1),
+        stepper.thr[s0:s1].transpose(0, 1), st.oom_killed,
+        (st.data_node, st.leaf_node, st.mid_node, st.top_node),
         (stepper.tables.read, stepper.tables.write),
-        [(tlb.tags[None], tlb.lru[None]) for tlb in
+        [(tlb.tags, tlb.lru) for tlb in
          (st.l1_tlb, st.stlb, st.pde_pwc, st.pdpte_pwc)],
-        [a[None] for a in (cyc.total, cyc.walk, cyc.stall, cyc.data_mem)],
-        [x.view(1) for x in (c.l1_hits, c.stlb_hits, c.walks,
-                             c.walk_mem_reads)],
-        (st.access_recent[None], st.written_recent[None]),
-        [tl_i[:, k][None] for k in (7, 8, 4)],   # l1 hits, stlb hits, walks
+        (cyc.total, cyc.walk, cyc.stall, cyc.data_mem),
+        (c.l1_hits, c.stlb_hits, c.walks, c.walk_mem_reads),
+        (st.access_recent, st.written_recent),
+        [tl_i[:, :, k].T for k in (7, 8, 4)],   # l1 hits, stlb hits, walks
         now0=stepper.start + s0, map_shift=mc.map_shift,
         radix_bits=mc.radix_bits, thp=mc.page_order > 0,
-        costs=(cc.llc_hit, cc.stlb_hit, cc.cpu_work, cc.data_stall_frac))
-    tl_f[:, :4] = cum[0].sum(-1)
+        costs=stepper.window_costs)
+    tl_f[:, :, :4] = cum.sum(-1).transpose(0, 1)
 
 
 class BlockedRunner:
-    """One run of the time-blocked engine in progress (the reference's
-    ``_build_blocked_body`` and the blocked half of its ``run``).
+    """``L`` runs of the time-blocked engine in progress (the reference's
+    ``_build_blocked_body`` and the blocked half of its ``run`` and
+    ``sweep_lanes``), one lane each; a single run is ``L = 1``.
 
-    The host plan (:func:`plan_windows`) dispatches each window: a fast
-    window is one :func:`fast_window_tile`; a full window replays its steps
-    through a :class:`Stepper`, with the configured fault path; a hoist
-    window runs its fast prefix, the scan tick, its fast suffix; a split
-    window its fast prefix, the event span step by step, its fast suffix.
-    Only live rows run (the reference masks the others into exact
-    no-ops), so the kernel is launched once per non-empty fast segment
-    (:attr:`fast_segments`).  :meth:`advance` runs windows, as
-    ``Stepper.advance`` runs steps; the timeline comes out in step order.
-    :attr:`host_s` sums the host's seconds in each kind of segment (fast,
-    scan, steps): the time to issue its work, as the loop never waits on
-    the device.
+    The host plan (:func:`plan_windows`), made from the lanes' union
+    schedule, dispatches each window: a fast window is one
+    :func:`fast_window_tile`; a full window replays its steps through a
+    :class:`Stepper`, with the configured fault path; a hoist window runs
+    its fast prefix, the scan tick, its fast suffix; a split window its
+    fast prefix, the event span step by step, its fast suffix.  Only live
+    rows run (the reference masks the others into exact no-ops), so the
+    kernel is launched once per non-empty fast segment
+    (:attr:`fast_segments`), for all lanes.  :meth:`advance` runs windows,
+    as ``Stepper.advance`` runs steps; the timeline comes out in step
+    order.  :attr:`host_s` sums the host's seconds in each kind of segment
+    (fast, scan, steps): the time to issue its work, as the loop never
+    waits on the device.  The arguments are :class:`Stepper`'s, and
+    ``block`` the window size.
     """
 
-    def __init__(self, sim: "TieredMemSimulator", trace: Trace,
-                 state: Optional[SimState] = None):
-        self.stepper = Stepper(sim, trace, state)
-        S = trace.n_steps
-        self.block = min(sim.block, pow2ceil(S))
+    def __init__(self, mc: MachineConfig, ccs, pcs, traces, *,
+                 block: int = DEFAULT_BLOCK, **kw):
+        self.stepper = Stepper(mc, ccs, pcs, traces, **kw)
         stp = self.stepper
+        S = stp.n_steps
+        self.block = min(int(block), pow2ceil(S))
         self.plan = plan_windows(stp.do_free, stp.do_scan, stp.has_fault, S,
                                  self.block)
         self.ops = window_ops(self.plan, S)
@@ -1240,13 +1364,32 @@ class BlockedRunner:
                         stp.step(s)
                 self.host_s[op] += time.perf_counter() - t0
         self.w = hi
-        stp.s = min(hi * self.block, stp.trace.n_steps)
+        stp.s = min(hi * self.block, stp.n_steps)
         stp.st.step.fill_(stp.start + stp.s)
         return self
 
-    def result(self) -> RunResult:
-        """The windows run so far as a :class:`RunResult` (host numpy)."""
-        return self.stepper.result()
+    def results(self) -> "list[RunResult]":
+        """The windows run so far, a :class:`RunResult` per lane."""
+        return self.stepper.results()
+
+    def result(self, lane: int = 0) -> RunResult:
+        """Lane ``lane``'s windows run so far (host numpy)."""
+        return self.stepper.result(lane)
+
+
+def _normalize_blocked(budget: int, phase_b: str, group: Optional[int],
+                       geom):
+    """The reference's canonical compile-key components of a blocked
+    geometry: without a full or split window no per-step body runs (the
+    fault path and the allocator's group bound are dead), and without any
+    window that can scan the candidate bound is dead too."""
+    needs_step = geom is not None and (bool(geom[0]) or geom[2] is not None)
+    needs_scan = needs_step or (geom is not None and geom[1] is not None)
+    if not needs_step:
+        phase_b, group = "batched", None
+    if not needs_scan:
+        budget = 0
+    return budget, phase_b, group
 
 
 class TieredMemSimulator:
@@ -1254,7 +1397,8 @@ class TieredMemSimulator:
 
     Keeps the reference's signature and gate.  ``engine="blocked"`` (the
     default) is the time-blocked engine (:class:`BlockedRunner`);
-    ``"per_step"`` is the step-at-a-time engine (:class:`Stepper`).
+    ``"per_step"`` is the step-at-a-time engine (:class:`Stepper`); a run
+    is one lane of either (``core.sweep`` runs many).
     ``phase_b="batched"`` (default) is the conflict-aware vectorized fault
     path, ``"sequential"`` the per-thread loop it is tested against.  The
     per-step engine and the sequential path are differential oracles and
@@ -1271,13 +1415,7 @@ class TieredMemSimulator:
                  block: int = DEFAULT_BLOCK,
                  debug: bool = False,
                  device=None):
-        if engine not in ("blocked", "per_step") or \
-                phase_b not in ("batched", "sequential"):
-            raise ValueError(f"unknown engine={engine!r} or phase_b={phase_b!r}")
-        if (engine != "blocked" or phase_b != "batched") and not debug:
-            raise ValueError(
-                f"engine={engine!r} phase_b={phase_b!r} are reference "
-                f"(oracle) paths; pass debug=True to run them")
+        check_engine(engine, phase_b, debug)
         self.mc, self.cc, self.pc = mc, cc, pc
         self.phase_b = phase_b
         self.engine = engine
@@ -1290,9 +1428,23 @@ class TieredMemSimulator:
         default; a resumed state may hold tensors or numpy arrays) on the
         configured engine: a :class:`BlockedRunner` (``advance`` by
         windows) or a :class:`Stepper` (``advance`` by steps)."""
+        kw = dict(phase_b=self.phase_b, device=self.device, state=state)
+        lanes = (self.mc, [self.cc], [self.pc], [trace])
         if self.engine == "blocked":
-            return BlockedRunner(self, trace, state)
-        return Stepper(self, trace, state)
+            return BlockedRunner(*lanes, block=self.block, **kw)
+        return Stepper(*lanes, **kw)
 
     def run(self, trace: Trace, state: Optional[SimState] = None) -> RunResult:
         return self.runner(trace, state).advance().result()
+
+
+def check_engine(engine: str, phase_b: str, debug: bool) -> None:
+    """The reference's gate: the per-step engine and the sequential fault
+    path are oracle paths and need ``debug=True``."""
+    if engine not in ("blocked", "per_step") or \
+            phase_b not in ("batched", "sequential"):
+        raise ValueError(f"unknown engine={engine!r} or phase_b={phase_b!r}")
+    if (engine != "blocked" or phase_b != "batched") and not debug:
+        raise ValueError(
+            f"engine={engine!r} phase_b={phase_b!r} are reference "
+            f"(oracle) paths; pass debug=True to run them")

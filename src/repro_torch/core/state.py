@@ -7,8 +7,11 @@ pages touched by a walk are leaf ``m >> radix_bits``, mid
 int32 "NUMA node or -1" array per level encodes the whole tree.
 
 Every field is a tensor on one device, with the reference's dtypes (int32,
-float32, bool) and shapes; :meth:`SimState.to_numpy` gives the same field
-names, dtypes and shapes as the JAX state after ``jax.device_get``.
+float32, bool) and shapes.  The engine holds ``L`` runs at once (a sweep's
+lanes; a single run is ``L = 1``), so each field has a leading lane axis,
+as the reference's vmapped sweep state; :meth:`SimState.lane` gives one
+run with the field names, dtypes and shapes of the JAX state after
+``jax.device_get``.
 """
 from __future__ import annotations
 
@@ -50,9 +53,9 @@ class Counters:
     nomad_shadow_drops: torch.Tensor    # Nomad: shadows invalidated by a write
 
 
-def zero_counters(n_nodes: int, device) -> Counters:
+def zero_counters(n_nodes: int, device, lanes: int = 1) -> Counters:
     def z(shape=()):
-        return torch.zeros(shape, dtype=I32, device=device)
+        return torch.zeros((lanes, *shape), dtype=I32, device=device)
     fields = {f.name: z() for f in dataclasses.fields(Counters)}
     fields.update(data_allocs=z((n_nodes,)), pt_allocs=z((n_nodes,)))
     return Counters(**fields)
@@ -70,9 +73,9 @@ class Cycles:
     migration: torch.Tensor  # f32[]  background migration work (all threads)
 
 
-def zero_cycles(n_threads: int, device) -> Cycles:
+def zero_cycles(n_threads: int, device, lanes: int = 1) -> Cycles:
     def z(shape):
-        return torch.zeros(shape, dtype=F32, device=device)
+        return torch.zeros((lanes, *shape), dtype=F32, device=device)
     return Cycles(total=z((n_threads,)), walk=z((n_threads,)),
                   stall=z((n_threads,)), data_mem=z((n_threads,)),
                   fault=z((n_threads,)), migration=z(()))
@@ -112,10 +115,13 @@ class SimState:
     step: torch.Tensor                # i32[] global step (LRU timestamp)
 
     def to_numpy(self) -> "SimState":
-        """The same structure with every field a numpy array on the host:
-        the field names, dtypes and shapes of the JAX state after
-        ``jax.device_get``."""
+        """The same structure with every field a numpy array on the host."""
         return _map_fields(self, lambda t: t.detach().cpu().numpy())
+
+    def lane(self, i: int) -> "SimState":
+        """Run ``i`` of a host copy (:meth:`to_numpy`): the field names,
+        dtypes and shapes of the JAX state after ``jax.device_get``."""
+        return _map_fields(self, lambda a: a[i, ...])
 
     def to(self, device) -> "SimState":
         """A copy on ``device``; the fields may be tensors or numpy arrays
@@ -123,6 +129,11 @@ class SimState:
         dev = torch.device(device)
         return _map_fields(self, lambda t: torch.as_tensor(
             np.asarray(t) if not torch.is_tensor(t) else t).to(dev).clone())
+
+    def with_lane_axis(self) -> "SimState":
+        """One run's state (a field per run, as :meth:`lane` gives it) as
+        ``L = 1``: a lane axis in front of every field (views)."""
+        return _map_fields(self, lambda t: t[None])
 
 
 def _map_fields(obj, fn):
@@ -132,16 +143,19 @@ def _map_fields(obj, fn):
     return fn(obj)
 
 
-def init_state(mc: MachineConfig, device=None) -> SimState:
-    """The empty machine on ``device`` (``None``: the CUDA device)."""
+def init_state(mc: MachineConfig, device=None, lanes: int = 1) -> SimState:
+    """The empty machine on ``device`` (``None``: the CUDA device), for
+    ``lanes`` runs: every field has a leading lane axis of that length."""
     dev = resolve_device(device)
+    L = int(lanes)
     cap = torch.tensor(mc.node_capacity(), dtype=I32, device=dev)
     # f32 product truncated to int32, as the reference rounds it
     reclaim = (cap.to(F32) * mc.reclaimable_frac).to(I32)
 
     def full(shape, value, dtype=I32):
-        return torch.full(shape, value, dtype=dtype, device=dev)
+        return torch.full((L, *shape), value, dtype=dtype, device=dev)
 
+    T = mc.n_threads
     return SimState(
         data_node=full((mc.n_map,), -1),
         leaf_node=full((mc.n_leaf_pages,), -1),
@@ -150,19 +164,19 @@ def init_state(mc: MachineConfig, device=None) -> SimState:
         root_node=full((1,), -1),
         leaf_dram_children=full((mc.n_leaf_pages,), 0),
         shadow_node=full((mc.n_map,), -1),
-        node_free=cap - reclaim,
-        node_reclaimable=reclaim,
+        node_free=(cap - reclaim).repeat(L, 1),
+        node_reclaimable=reclaim.repeat(L, 1),
         interleave_ptr=full((), 0),
         oom_killed=full((), False, torch.bool),
         oom_step=full((), -1),
         access_recent=full((mc.n_map,), 0),
         written_recent=full((mc.n_map,), 0),
-        l1_tlb=tlbs.make_tlb(mc.n_threads, mc.l1_tlb_sets, mc.l1_tlb_ways, dev),
-        stlb=tlbs.make_tlb(mc.n_threads, mc.stlb_sets, mc.stlb_ways, dev),
-        pde_pwc=tlbs.make_tlb(mc.n_threads, 1, mc.pde_pwc_entries, dev),
-        pdpte_pwc=tlbs.make_tlb(mc.n_threads, 1, mc.pdpte_pwc_entries, dev),
-        cycles=zero_cycles(mc.n_threads, dev),
-        counters=zero_counters(mc.n_nodes, dev),
+        l1_tlb=tlbs.make_tlb(T, mc.l1_tlb_sets, mc.l1_tlb_ways, dev, (L,)),
+        stlb=tlbs.make_tlb(T, mc.stlb_sets, mc.stlb_ways, dev, (L,)),
+        pde_pwc=tlbs.make_tlb(T, 1, mc.pde_pwc_entries, dev, (L,)),
+        pdpte_pwc=tlbs.make_tlb(T, 1, mc.pdpte_pwc_entries, dev, (L,)),
+        cycles=zero_cycles(T, dev, L),
+        counters=zero_counters(mc.n_nodes, dev, L),
         step=full((), 0),
     )
 

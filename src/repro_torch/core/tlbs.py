@@ -3,8 +3,10 @@ the JAX package's ``core/tlbs.py``).
 
 Every simulated CPU thread owns a private translation hierarchy (L1 dTLB,
 STLB, PDE PWC, PDPTE PWC), each a dense int32 ``[T, sets, ways]`` pair of
-tag and LRU arrays with a leading thread axis.  LRU is a timestamp (the
-global step); empty slots carry -1.
+tag and LRU arrays with a leading thread axis; a sweep's runs add a lane
+axis in front, ``[L, T, sets, ways]``, and every function here takes any
+leading axes (a tag per leading index).  LRU is a timestamp (the global
+step); empty slots carry -1.
 
 The reference picks a hit with ``argmax(match)`` and a victim with
 ``argmin(lru)``, both first-index on ties (an empty set ties at -1).  Here
@@ -26,28 +28,34 @@ import torch
 class TlbArray:
     """One set-associative, per-thread translation cache."""
 
-    tags: torch.Tensor  # i32[T, sets, ways], -1 = invalid
-    lru: torch.Tensor   # i32[T, sets, ways], -1 = empty, else last-use step
+    tags: torch.Tensor  # i32[..., T, sets, ways], -1 = invalid
+    lru: torch.Tensor   # i32[..., T, sets, ways], -1 = empty, else last-use step
 
 
-def make_tlb(n_threads: int, sets: int, ways: int, device) -> TlbArray:
-    shape = (n_threads, sets, ways)
+def make_tlb(n_threads: int, sets: int, ways: int, device,
+             lanes: Tuple[int, ...] = ()) -> TlbArray:
+    shape = (*lanes, n_threads, sets, ways)
     return TlbArray(tags=torch.full(shape, -1, dtype=torch.int32, device=device),
                     lru=torch.full(shape, -1, dtype=torch.int32, device=device))
 
 
 def _probe(tlb: TlbArray, tag: torch.Tensor):
-    """(hit bool[T], way i64[T], flat i64[T]): ``flat`` is each thread's
-    set row in the ``[T * sets, ways]`` view."""
-    T, sets, ways = tlb.tags.shape
-    flat = torch.arange(0, T * sets, sets, device=tag.device) + tag % sets
-    set_tags = tlb.tags.view(T * sets, ways).index_select(0, flat)
-    set_lru = tlb.lru.view(T * sets, ways).index_select(0, flat)
+    """(hit bool, way i64, flat i64), each of ``tag``'s shape (one tag per
+    leading index of the cache): ``flat`` is each tag's set row in the
+    ``[N * sets, ways]`` view."""
+    sets, ways = tlb.tags.shape[-2:]
+    N = tag.numel()
+    flat = torch.arange(0, N * sets, sets, device=tag.device) \
+        + tag.reshape(N) % sets
+    set_tags = tlb.tags.reshape(N * sets, ways).index_select(0, flat)
+    set_lru = tlb.lru.reshape(N * sets, ways).index_select(0, flat)
     way_ids = torch.arange(ways, device=tag.device)
-    hit_way = torch.where(set_tags == tag[:, None], way_ids, ways).amin(1)
+    hit_way = torch.where(set_tags == tag.reshape(N, 1), way_ids, ways).amin(1)
     hit = hit_way < ways
     victim = ((set_lru.long() + 1) * ways + way_ids).amin(1) % ways
-    return hit, torch.where(hit, hit_way, victim), flat
+    shape = tag.shape
+    return (hit.view(shape), torch.where(hit, hit_way, victim).view(shape),
+            flat.view(shape))
 
 
 def lookup(tlb: TlbArray, tag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -64,18 +72,22 @@ def update(tlb: TlbArray, tag: torch.Tensor, way: torch.Tensor, now,
            active: torch.Tensor) -> TlbArray:
     """Touch-or-insert ``tag`` at ``way`` for threads with ``active`` set
     (in place)."""
-    T, sets, _ = tlb.tags.shape
-    row = torch.arange(0, T * sets, sets, device=tag.device) + tag % sets
+    sets = tlb.tags.shape[-2]
+    N = tag.numel()
+    row = torch.arange(0, N * sets, sets, device=tag.device) \
+        + tag.reshape(N) % sets
     return _write(tlb, row, way, tag, now, active)
 
 
 def _write(tlb: TlbArray, row, way, tag, now, active) -> TlbArray:
     """:func:`update` with each thread's set row (from :func:`_probe`)
     given: one entry per thread, so the writes never collide."""
-    pos = row * tlb.tags.shape[2] + way
+    pos = (row * tlb.tags.shape[-1] + way).reshape(-1)
     for arr, val in ((tlb.tags, tag), (tlb.lru, now)):
         flat = arr.view(-1)
-        flat.index_copy_(0, pos, torch.where(active, val,
+        if torch.is_tensor(val):
+            val = val.reshape(-1)
+        flat.index_copy_(0, pos, torch.where(active.reshape(-1), val,
                                              flat.index_select(0, pos)))
     return tlb
 
@@ -84,10 +96,18 @@ def invalidate_matching(tlb: TlbArray, flushed_lookup: torch.Tensor,
                         shift: int) -> TlbArray:
     """Invalidate every entry whose ``tag >> shift`` indexes a set bit of
     the bool table ``flushed_lookup`` (targeted shootdowns after a
-    data-page or leaf-PT-page migration, or a segment free)."""
+    data-page or leaf-PT-page migration, or a segment free): ``[n]``
+    shared by the whole cache, or ``[L, n]``, one row per lane of an
+    ``[L, T, sets, ways]`` cache."""
     valid = tlb.tags >= 0
-    idx = (tlb.tags >> shift).clamp(0, flushed_lookup.shape[0] - 1).long()
-    kill = valid & flushed_lookup[idx]
+    n = flushed_lookup.shape[-1]
+    idx = (tlb.tags >> shift).clamp(0, n - 1).long()
+    if flushed_lookup.dim() == 1:
+        hit = flushed_lookup[idx]
+    else:
+        L = flushed_lookup.shape[0]
+        hit = flushed_lookup.gather(1, idx.view(L, -1)).view(idx.shape)
+    kill = valid & hit
     tlb.tags.masked_fill_(kill, -1)
     tlb.lru.masked_fill_(kill, -1)
     return tlb
@@ -99,23 +119,37 @@ def flush_all(tlb: TlbArray) -> TlbArray:
     return tlb
 
 
+def _thread(tlb: TlbArray, thread: int) -> TlbArray:
+    """Thread ``thread``'s cache, a view keeping its thread axis (length
+    1)."""
+    return TlbArray(tags=tlb.tags[..., thread:thread + 1, :, :],
+                    lru=tlb.lru[..., thread:thread + 1, :, :])
+
+
 def update_one(tlb: TlbArray, thread: int, tag: torch.Tensor, now,
                active: torch.Tensor) -> TlbArray:
-    """Touch-or-insert ``tag`` (a 0-dim tensor) in thread ``thread``'s
-    cache where ``active`` (0-dim bool) is set, in place: the hitting way,
-    else the lowest-index way of least ``lru`` (used by the sequential
-    fault path)."""
-    one = TlbArray(tags=tlb.tags[thread:thread + 1],
-                   lru=tlb.lru[thread:thread + 1])
-    tag = tag.reshape(1)
+    """Touch-or-insert ``tag`` in thread ``thread``'s cache where
+    ``active`` is set, in place: the hitting way, else the lowest-index way
+    of least ``lru`` (used by the sequential fault path).  ``tag`` and
+    ``active`` are 0-dim for a ``[T, sets, ways]`` cache, and one per lane
+    for an ``[L, T, sets, ways]`` one."""
+    one = _thread(tlb, thread)
+    shape = one.tags.shape[:-2]
+    tag = tag.reshape(shape)
     _, way, row = _probe(one, tag)
-    _write(one, row, way, tag, now, active.reshape(1))
+    if one.tags.is_contiguous():
+        _write(one, row, way, tag, now, active.reshape(shape))
+        return tlb
+    # a thread of several lanes is a strided view: write through a copy
+    local = TlbArray(tags=one.tags.contiguous(), lru=one.lru.contiguous())
+    _write(local, row, way, tag, now, active.reshape(shape))
+    one.tags.copy_(local.tags)
+    one.lru.copy_(local.lru)
     return tlb
 
 
 def lookup_one(tlb: TlbArray, thread: int, tag: torch.Tensor) -> torch.Tensor:
-    """Hit test (0-dim bool) of ``tag`` in thread ``thread``'s cache; no
-    state change."""
-    one = TlbArray(tags=tlb.tags[thread:thread + 1],
-                   lru=tlb.lru[thread:thread + 1])
-    return _probe(one, tag.reshape(1))[0][0]
+    """Hit test of ``tag`` in thread ``thread``'s cache (0-dim bool, or one
+    per lane); no state change."""
+    one = _thread(tlb, thread)
+    return _probe(one, tag.reshape(one.tags.shape[:-2]))[0][..., 0]

@@ -42,7 +42,7 @@ SIGNATURES = {
     "paged_attention_capture_id": [_c.c_void_p, _c.c_void_p],
     "alloc_scan_launch": [_c.c_void_p] * 10 + [_c.c_int] * 7
                          + [_c.c_void_p] * 11,
-    "fast_window_launch": [_c.c_void_p] * 4,
+    "fast_window_launch": [_c.c_void_p] * 3,
 }
 
 

@@ -29,7 +29,10 @@
 // A lookup hits at the lowest matching way; a miss picks the lowest way
 // of least lru (an empty way carries -1), as the reference's
 // argmax/argmin.  Stamps must keep (now0 + R + 3) * ways below 2^32 (the
-// wrapper checks).  Outputs: cum [L, R, 4, T], the four accumulators
+// wrapper checks).  Each run l has its own latency tables (lat[l]) and
+// costs (costs[l]: llc_hit, stlb_hit, cpu_work, data_stall_frac).  The
+// trace rows (va, is_write, thr) are read through a lane and a row stride,
+// so a window of a step-major table needs no copy.  Outputs: cum [L, R, 4, T], the four accumulators
 // after each row; in place: the caches, the accumulators, the counters
 // (the segment's totals added), the hotness counts, and three [L, R]
 // row-count views (each row's l1 hits, stlb hits and walks since the
@@ -67,7 +70,10 @@
 //     publishes its progress every kGroup rows (a release store to a
 //     shared flag), and a consumer probes ahead and waits (an acquire
 //     load) only when it needs a bit it has not seen, so the four chains
-//     overlap.  Each row records its hit bits and the entry it wrote;
+//     overlap.  A cache of more than 32 ways gives a lane the ways lane,
+//     lane + 32, ..., whose least key it takes before the warp's minimum
+//     (keys are distinct, so one lane owns the least).  Each row records
+//     its hit bits and the entry it wrote;
 //   epilogue, one row per thread: the entries the chunk wrote go back to
 //     global memory, the cost terms come from the four hit bits, the
 //     counts by a block scan (four 16-bit fields of a 64-bit word), then
@@ -93,6 +99,11 @@ constexpr int kChunk = kThreads;           // rows per chunk: one a thread
 // quarter of a 64-row segment.
 constexpr int kGroup = 8;
 constexpr unsigned kFull = 0xffffffffu;
+// The four caches of a thread, staged whole in dynamic shared memory (tag
+// and stamp, each array padded to 4 ints): at most 216 KiB, 27,648
+// entries, which with the static Shared below stays under the 227 KiB a
+// Hopper CTA may take.  ops.fast_window checks it first.
+constexpr size_t kMaxStagedBytes = 216 * 1024;
 
 __host__ __device__ constexpr uint32_t site_seed(uint32_t site) {
   return 0x811C9DC5u + 0x1000193u * site;
@@ -101,12 +112,13 @@ constexpr uint32_t kMix0 = 0x9E3779B1u, kMix1 = 0x85EBCA77u,
                    kMix2 = 0xC2B2AE3Du;
 
 struct Params {
-  const int32_t* va;           // [L, R, T]
-  const uint8_t* is_write;     // [L, R, T]
-  const int64_t* thr;          // [L, R, 4]
+  const int32_t* va;           // [L, R, T] (strides va_sl, va_sr, 1)
+  const uint8_t* is_write;     // [L, R, T], va's strides
+  const int64_t* thr;          // [L, R, 4] (strides thr_sl, thr_sr, 1)
   const uint8_t* oom;          // [L]
   const int32_t* node[4];      // data, leaf, mid, top: [L, n]
-  const float* lat[2];         // read, write: [K]
+  const float* lat[2];         // read, write: [L, K]
+  const float* costs;          // [L, 4]
   int32_t* tags[4];            // L1, STLB, PDE, PDPTE: [L, T, sets, ways]
   int32_t* lru[4];
   float* acc[4];               // total, walk, stall, data: [L, T]
@@ -121,6 +133,11 @@ struct Params {
   unsigned magic[4];
   int shift[4];
   long long rc_sl, rc_sr;      // the row counts' strides
+  long long va_sl, va_sr, thr_sl, thr_sr;
+};
+
+// Run l's costs, read once per CTA.
+struct Costs {
   float llc_hit, stlb_hit, cpu_work, frac;
 };
 
@@ -176,9 +193,9 @@ struct RowIn {
   float4 x;       // leaf read, mid and top read on a miss, data cost
 };
 
-__device__ __forceinline__ RowIn row_inputs(const Params& p, int l, int t,
-                                            int r) {
-  const size_t idx = ((size_t)l * p.R + r) * p.T + t;
+__device__ __forceinline__ RowIn row_inputs(const Params& p, const Costs& cs,
+                                            int l, int t, int r) {
+  const size_t idx = (size_t)l * p.va_sl + (size_t)r * p.va_sr + t;
   const int va = __ldg(p.va + idx);
   const bool write = __ldg(p.is_write + idx);
   const int n_map = p.n_node[0];
@@ -188,22 +205,23 @@ __device__ __forceinline__ RowIn row_inputs(const Params& p, int l, int t,
   const int data_n = node_of(p, 0, l, m), leaf_n = node_of(p, 1, l, leaf),
             mid_n = node_of(p, 2, l, mid), top_n = node_of(p, 3, l, top);
   const uint32_t now = (uint32_t)(p.now0 + r);
-  const int64_t* thr = p.thr + ((size_t)l * p.R + r) * 4;
+  const int64_t* thr = p.thr + (size_t)l * p.thr_sl + (size_t)r * p.thr_sr;
   const bool leaf_llc = (int64_t)hash24(site_seed(1), m, now, t) < __ldg(thr);
   const bool up1 = (int64_t)hash24(site_seed(2), mid, now, t) < __ldg(thr + 1);
   const bool up2 = (int64_t)hash24(site_seed(3), top, now, t) < __ldg(thr + 2);
   const bool data_llc =
       (int64_t)hash24(site_seed(4), m, now, t) < __ldg(thr + 3);
-  const float* rd = p.lat[0];
-  const float mem = write ? node_lat(p.lat[1], p.K, data_n)
+  const float* rd = p.lat[0] + (size_t)l * p.K;
+  const float* wr = p.lat[1] + (size_t)l * p.K;
+  const float mem = write ? node_lat(wr, p.K, data_n)
                           : node_lat(rd, p.K, data_n);
   RowIn in;
   in.m = m;
   in.flags = (int)act | (int)leaf_llc << 1 | (int)up1 << 2 | (int)up2 << 3;
-  in.x = make_float4(leaf_llc ? p.llc_hit : node_lat(rd, p.K, leaf_n),
-                     up1 ? p.llc_hit : node_lat(rd, p.K, mid_n),
-                     up2 ? p.llc_hit : node_lat(rd, p.K, top_n),
-                     act ? (data_llc ? p.llc_hit : mem) : 0.f);
+  in.x = make_float4(leaf_llc ? cs.llc_hit : node_lat(rd, p.K, leaf_n),
+                     up1 ? cs.llc_hit : node_lat(rd, p.K, mid_n),
+                     up2 ? cs.llc_hit : node_lat(rd, p.K, top_n),
+                     act ? (data_llc ? cs.llc_hit : mem) : 0.f);
   if (act) {
     const size_t h = (size_t)l * n_map + m;
     atomicAdd(p.hot[0] + h, 1);
@@ -286,8 +304,8 @@ __device__ __forceinline__ int set_base(int tag, int sets, int ways,
 }
 
 // Warp C runs cache C (0 L1 dTLB, 1 STLB, 2 PDE, 3 PDPTE) through the
-// chunk's n rows (see Design), one way a lane (the wrapper refuses more
-// than 32 ways; the repository's machines have at most 32).  The chain of
+// chunk's n rows (see Design), one way a lane, and past 32 ways the ways
+// lane + 32, lane + 64, ... too, folded into the lane's key.  The chain of
 // a row is the set's loads, the key, the warp minimum and the owner's
 // store; the next row's tag and set are computed beside it, and a
 // consumer reads its producer's bits only for the store (waiting only
@@ -312,6 +330,13 @@ __device__ __forceinline__ void chain(const Params& p, Shared& s,
     unsigned key = UINT_MAX;
     int slot = base + lane;
     if (lane < ways) key = way_key(tags, lru, slot, lane, ways, tag);
+    for (int w = lane + kWarp; w < ways; w += kWarp) {
+      const unsigned kw = way_key(tags, lru, base + w, w, ways, tag);
+      if (kw < key) {
+        key = kw;
+        slot = base + w;
+      }
+    }
     const int tag_next = s.m[min(r + 1, n - 1)] >> tag_shift;
     const int base_next = set_base<kSets>(tag_next, sets, ways, magic, shift);
     bool on;
@@ -358,11 +383,13 @@ __global__ void __launch_bounds__(kThreads)
   asm volatile("cp.async.commit_group;\n" ::);
   if (tid < 4) s.carry[tid] = 0;
   float acc = tid < 4 ? p.acc[tid][run] : 0.f;   // lane k of warp 0: acc k
+  const float* cl = p.costs + (size_t)l * 4;
+  const Costs cs = {__ldg(cl), __ldg(cl + 1), __ldg(cl + 2), __ldg(cl + 3)};
 
   for (int r0 = 0; r0 < p.R; r0 += kChunk) {
     const int n = min(kChunk, p.R - r0);
     if (tid < n) {
-      const RowIn in = row_inputs(p, l, t, r0 + tid);
+      const RowIn in = row_inputs(p, cs, l, t, r0 + tid);
       s.m[tid] = in.m;
       s.flags[tid] = (uint8_t)in.flags;
       s.x[tid] = in.x;
@@ -400,7 +427,7 @@ __global__ void __launch_bounds__(kThreads)
       const bool full = !pde_hit && !pdpte_hit;
       const float mid_read = pde_hit ? 0.f : x.y;
       const float top_read = (!p.thp && full) ? x.z : 0.f;
-      const float root_read = full ? p.llc_hit : 0.f;
+      const float root_read = full ? cs.llc_hit : 0.f;
       const float walk_cost =
           walkn ? __fadd_rn(__fadd_rn(__fadd_rn(x.x, mid_read), top_read),
                             root_read)
@@ -408,10 +435,10 @@ __global__ void __launch_bounds__(kThreads)
       const int reads = walkn ? (int)!leaf_llc + (int)(!pde_hit && !up1) +
                                     (int)(!p.thp && full && !up2)
                               : 0;
-      const float tlb_penalty = (act && !hit1) ? p.stlb_hit : 0.f;
-      const float stall = __fadd_rn(walk_cost, __fmul_rn(p.frac, x.w));
+      const float tlb_penalty = (act && !hit1) ? cs.stlb_hit : 0.f;
+      const float stall = __fadd_rn(walk_cost, __fmul_rn(cs.frac, x.w));
       s.sum[0][tid] =
-          __fadd_rn(__fadd_rn(act ? p.cpu_work : 0.f, tlb_penalty), stall);
+          __fadd_rn(__fadd_rn(act ? cs.cpu_work : 0.f, tlb_penalty), stall);
       s.sum[1][tid] = walk_cost;
       s.sum[2][tid] = stall;
       inc = (unsigned long long)(act && hit1) |
@@ -457,14 +484,14 @@ __global__ void __launch_bounds__(kThreads)
 }  // namespace
 
 // ptrs: va, is_write, thr, oom_killed, data / leaf / mid / top nodes, read
-// and write latencies, the four caches' tags then their lru, the four
-// accumulators, the four counters, access and written counts, the three
-// row counts, cum (32).  ints: L, R, T, now0, map_shift, radix_bits, thp,
-// the four placements' lengths, K, the caches' sets, ways, magic numbers
-// and shifts, the row counts' two strides (30).  costs: llc_hit,
-// stlb_hit, cpu_work, data_stall_frac.
+// and write latencies, costs, the four caches' tags then their lru, the
+// four accumulators, the four counters, access and written counts, the
+// three row counts, cum (33).  ints: L, R, T, now0, map_shift, radix_bits,
+// thp, the four placements' lengths, K, the caches' sets, ways, magic
+// numbers and shifts, the row counts' two strides, va's and thr's lane and
+// row strides (34).
 extern "C" int fast_window_launch(const uint64_t* ptrs, const long long* ints,
-                                  const float* costs, void* stream) {
+                                  void* stream) {
   Params p;
   int i = 0;
   p.va = (const int32_t*)ptrs[i++];
@@ -473,6 +500,7 @@ extern "C" int fast_window_launch(const uint64_t* ptrs, const long long* ints,
   p.oom = (const uint8_t*)ptrs[i++];
   for (int k = 0; k < 4; ++k) p.node[k] = (const int32_t*)ptrs[i++];
   for (int k = 0; k < 2; ++k) p.lat[k] = (const float*)ptrs[i++];
+  p.costs = (const float*)ptrs[i++];
   for (int k = 0; k < 4; ++k) p.tags[k] = (int32_t*)ptrs[i++];
   for (int k = 0; k < 4; ++k) p.lru[k] = (int32_t*)ptrs[i++];
   for (int k = 0; k < 4; ++k) p.acc[k] = (float*)ptrs[i++];
@@ -496,20 +524,19 @@ extern "C" int fast_window_launch(const uint64_t* ptrs, const long long* ints,
   for (int k = 0; k < 4; ++k) p.shift[k] = (int)ints[j++];
   p.rc_sl = ints[j++];
   p.rc_sr = ints[j++];
-  p.llc_hit = costs[0];
-  p.stlb_hit = costs[1];
-  p.cpu_work = costs[2];
-  p.frac = costs[3];
+  p.va_sl = ints[j++];
+  p.va_sr = ints[j++];
+  p.thr_sl = ints[j++];
+  p.thr_sr = ints[j++];
   if (p.L == 0 || p.T == 0 || p.R == 0) return 0;
   bool bad = p.L < 0 || p.T < 0 || p.R < 0 || p.K < 1 || p.rb < 0 ||
              p.rb > 15 || p.map_shift < 0 || p.map_shift > 30;
   size_t smem = 0;
   for (int k = 0; k < 4; ++k) {
-    bad |= p.n_node[k] < 1 || p.sets[k] < 1 || p.ways[k] < 1 ||
-           p.ways[k] > kWarp;
+    bad |= p.n_node[k] < 1 || p.sets[k] < 1 || p.ways[k] < 1;
     smem += 2 * sizeof(int32_t) * (((size_t)p.sets[k] * p.ways[k] + 3) & ~3);
   }
-  if (bad) return (int)cudaErrorInvalidValue;
+  if (bad || smem > kMaxStagedBytes) return (int)cudaErrorInvalidValue;
   if (smem > 32 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         fast_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

@@ -12,7 +12,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from . import build, ref
@@ -32,20 +31,19 @@ def fast_window_cuda(va, is_write, thr, oom_killed, nodes, lat, caches, acc,
     if L * R * T == 0:
         return cum
     tags, lru = zip(*caches)
-    ptrs = [va, is_write, thr, oom_killed, *nodes, *lat, *tags, *lru, *acc,
-            *counters, *hot, *row_counts, cum]
+    ptrs = [va, is_write, thr, oom_killed, *nodes, *lat, costs, *tags, *lru,
+            *acc, *counters, *hot, *row_counts, cum]
     magic = [ref.set_magic(t.shape[2]) for t in tags]
     ints = [L, R, T, int(now0), int(map_shift), int(radix_bits), int(thp),
-            *(n.shape[1] for n in nodes), lat[0].shape[0],
+            *(n.shape[1] for n in nodes), lat[0].shape[1],
             *(t.shape[2] for t in tags), *(t.shape[3] for t in tags),
             *(m for m, _ in magic), *(s for _, s in magic),
-            *row_counts[0].stride()]
+            *row_counts[0].stride(), *va.stride()[:2], *thr.stride()[:2]]
     lib = build.build().lib
     with torch.cuda.device(va.device):
         err = lib.fast_window_launch(
             (ctypes.c_uint64 * len(ptrs))(*(t.data_ptr() for t in ptrs)),
             (ctypes.c_longlong * len(ints))(*ints),
-            (ctypes.c_float * 4)(*(float(np.float32(c)) for c in costs)),
             torch.cuda.current_stream().cuda_stream)
     build.check_launch("fast_window", err)
     launches += 1

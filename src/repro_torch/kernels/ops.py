@@ -190,6 +190,9 @@ def paged_attention(q, k_pool, v_pool, tables, lengths):
 
 
 MAX_ALLOC_NODES = 16      # csrc/alloc_scan.cu: node i's counts in warp lane i
+# csrc/fast_window.cu stages a thread's four caches (tag and stamp, 8 B an
+# entry) in at most 216 KiB of shared memory
+MAX_STAGED_ENTRIES = 216 * 1024 // 8
 
 
 def alloc_scan(node_free, node_reclaimable, interleave_ptr, oom_killed, wm,
@@ -259,17 +262,23 @@ def fast_window(va, is_write, thr, oom_killed, nodes, lat, caches, acc,
     chain, the hotness counts and the integer counters (see
     ``ref.fast_window_ref`` for the semantics and layouts).
 
-    ``va`` ``i32[L, R, T]``; ``is_write`` ``bool[L, R, T]``; ``thr``
-    ``i64[L, R, 4]``; ``oom_killed`` ``bool[L]``; ``nodes`` four ``i32[L,
-    n]`` (data, leaf, mid, top); ``lat`` two ``f32[K]`` (read, write at
-    ``node + 1``); ``caches`` four ``(tags, lru)`` pairs ``i32[L, T, sets,
-    ways]`` (L1 dTLB, STLB, PDE and PDPTE; the walk caches have one set);
-    ``acc`` four ``f32[L, T]``; ``counters`` four ``i32[L]``; ``hot`` two
-    ``i32[L, n_map]``; ``row_counts`` three ``i32[L, R]`` views of one
-    stride (they may be columns of a table); ``costs`` (llc_hit,
-    stlb_hit, cpu_work, data_stall_frac), read as float32.  The caches'
-    stamps are below ``now0``.  Updates every tensor after ``lat`` in
-    place and returns ``cum f32[L, R, 4, T]``."""
+    ``va`` ``i32[L, R, T]``; ``is_write`` ``bool[L, R, T]`` with ``va``'s
+    strides; ``thr`` ``i64[L, R, 4]`` (the three may be windows of larger
+    tables: each needs unit stride along its last axis only);
+    ``oom_killed`` ``bool[L]``; ``nodes`` four ``i32[L, n]`` (data, leaf,
+    mid, top); ``lat`` two ``f32[L, K]`` (each run's read and write
+    latencies at ``node + 1``); ``caches`` four ``(tags, lru)`` pairs
+    ``i32[L, T, sets, ways]`` (L1 dTLB, STLB, PDE and PDPTE; the walk
+    caches have one set; any number of ways); ``acc`` four ``f32[L, T]``;
+    ``counters`` four ``i32[L]``; ``hot`` two ``i32[L, n_map]``;
+    ``row_counts`` three ``i32[L, R]`` views of one stride (they may be
+    columns of a table); ``costs`` ``f32[L, 4]``, each run's (llc_hit,
+    stlb_hit, cpu_work, data_stall_frac).  The caches' stamps are below
+    ``now0``.  The kernel stages a thread's four caches in shared memory:
+    together at most ``MAX_STAGED_ENTRIES`` (27,648) entries, each array
+    counted padded to a multiple of 4 (a 1,536-entry STLB stages 12 KB).
+    Updates every tensor after ``lat`` in place and returns ``cum f32[L,
+    R, 4, T]``."""
     name = "fast_window"
     nodes, lat, acc, counters, hot, row_counts = (
         tuple(x) for x in (nodes, lat, acc, counters, hot, row_counts))
@@ -282,14 +291,17 @@ def fast_window(va, is_write, thr, oom_killed, nodes, lat, caches, acc,
            "counts and three row counts")
     flat = [t for pair in caches for t in pair]
     dev = _same_device(name, va, is_write, thr, oom_killed, *nodes, *lat,
-                       *flat, *acc, *counters, *hot, *row_counts)
-    _check(va.dtype == torch.int32 and va.dim() == 3, name,
-           f"va must be int32 [L, R, T], got {va.dtype} {tuple(va.shape)}")
+                       costs, *flat, *acc, *counters, *hot, *row_counts)
+    _check(va.dtype == torch.int32 and va.dim() == 3 and va.stride(2) == 1,
+           name, f"va must be int32 [L, R, T] with unit stride along T, got "
+           f"{va.dtype} {tuple(va.shape)}")
     L, R, T = va.shape
-    _check(is_write.dtype == torch.bool and is_write.shape == (L, R, T), name,
-           "is_write must be bool [L, R, T]")
-    _check(thr.dtype == torch.int64 and thr.shape == (L, R, 4), name,
-           "thr must be int64 [L, R, 4]")
+    _check(is_write.dtype == torch.bool and is_write.shape == (L, R, T)
+           and is_write.stride() == va.stride(), name,
+           "is_write must be bool [L, R, T] with va's strides")
+    _check(thr.dtype == torch.int64 and thr.shape == (L, R, 4)
+           and thr.stride(2) == 1, name,
+           "thr must be int64 [L, R, 4] with unit stride along its last axis")
     _check(oom_killed.dtype == torch.bool and oom_killed.shape == (L,), name,
            "oom_killed must be bool [L]")
     for t in nodes:
@@ -297,8 +309,10 @@ def fast_window(va, is_write, thr, oom_killed, nodes, lat, caches, acc,
                and t.shape[1] > 0, name, "the placements must be int32 [L, n]")
     for t in lat:
         _check(t.dtype == torch.float32 and t.shape == lat[0].shape
-               and t.dim() == 1 and t.numel() > 0, name,
-               "the latency tables must be float32 [K]")
+               and t.dim() == 2 and t.shape[0] == L and t.shape[1] > 0, name,
+               "the latency tables must be float32 [L, K]")
+    _check(torch.is_tensor(costs) and costs.dtype == torch.float32
+           and costs.shape == (L, 4), name, "costs must be float32 [L, 4]")
     for tags, lru in caches:
         _check(tags.dtype == torch.int32 and lru.dtype == torch.int32
                and tags.dim() == 4 and tags.shape == lru.shape
@@ -306,8 +320,10 @@ def fast_window(va, is_write, thr, oom_killed, nodes, lat, caches, acc,
                "each cache must be an int32 (tags, lru) pair [L, T, sets, ways]")
     for tags, _ in caches[2:]:
         _check(tags.shape[2] == 1, name, "the walk caches have one set")
-    for tags, _ in caches:   # the kernel compares a set's ways one a lane
-        _check(tags.shape[3] <= 32, name, "a cache has at most 32 ways")
+    staged = sum(-(-tags.shape[2] * tags.shape[3] // 4) * 4 for tags, _ in caches)
+    _check(staged <= MAX_STAGED_ENTRIES, name,
+           f"a thread's caches hold {staged} entries (padded), more than the "
+           f"{MAX_STAGED_ENTRIES} the kernel stages in shared memory")
     for a in acc:
         _check(a.dtype == torch.float32 and a.shape == (L, T), name,
                "the accumulators must be float32 [L, T]")
@@ -321,8 +337,7 @@ def fast_window(va, is_write, thr, oom_killed, nodes, lat, caches, acc,
         _check(rc.dtype == torch.int32 and rc.shape == (L, R)
                and rc.stride() == row_counts[0].stride(), name,
                "the row counts must be int32 [L, R] views of one stride")
-    for t in (va, is_write, thr, oom_killed, *nodes, *lat, *flat, *acc,
-              *counters, *hot):
+    for t in (oom_killed, *nodes, *lat, costs, *flat, *acc, *counters, *hot):
         _check(t.is_contiguous(), name, "needs contiguous tensors")
     _check(0 <= int(radix_bits) <= 15 and 0 <= int(map_shift) <= 30, name,
            "radix_bits must be in [0, 15] and map_shift in [0, 30]")

@@ -649,21 +649,24 @@ def fast_window_rows(va, is_write, thr, oom_killed, nodes, lat, now0,
     """The segment's precompute (the JAX package's ``_build_fast_window``
     before its inner scan): placements are constant over an event-free
     segment, so every gather, Bernoulli draw and latency term is taken at
-    once over ``[L, R, T]``.  Returns ``(m i32, flags bool[..., 4] (active,
-    leaf / mid / top LLC hit), terms f32[..., 4] (leaf read, mid and top
-    read on a miss, data cost))``; see :func:`fast_window_ref`."""
+    once over ``[L, R, T]``.  ``llc_hit`` is each run's ``f32[L]``.
+    Returns ``(m i32, flags bool[..., 4] (active, leaf / mid / top LLC
+    hit), terms f32[..., 4] (leaf read, mid and top read on a miss, data
+    cost))``; see :func:`fast_window_ref`."""
     L, R, T = va.shape
     dev = va.device
     data_node, leaf_node, mid_node, top_node = nodes
     read_lat, write_lat = lat
     rb = radix_bits
+    llc_hit = llc_hit.view(L, 1, 1)
     m = torch.where(va >= 0, va >> map_shift, 0).clamp(0, data_node.shape[1] - 1)
     active = (va >= 0) & ~oom_killed[:, None, None]
 
     def node_lat(table, arr, idx):
         node = torch.gather(arr, 1, idx.clamp(max=arr.shape[1] - 1)
-                            .reshape(L, -1).long()).view(idx.shape)
-        return table[(node.long() + 1).clamp(0, table.shape[0] - 1)]
+                            .reshape(L, -1).long())
+        k = (node.long() + 1).clamp(0, table.shape[1] - 1)
+        return table.gather(1, k).view(idx.shape)
 
     from ..core.sim import _site_seed, bern_hash
     # the four draws of sites 1-4 (leaf, mid, top, data) at once
@@ -701,8 +704,8 @@ def fast_window_ref(va, is_write, thr, oom_killed, nodes, lat, caches, acc,
     ``va i32[L, R, T]`` and ``is_write bool[L, R, T]`` the segment's trace
     rows; ``thr i64[L, R, 4]`` the draws' thresholds of sites 1-4 (leaf,
     mid, top, data) per row; ``oom_killed bool[L]``; ``nodes`` the
-    ``i32[L, n]`` placements of data, leaf, mid and top pages; ``lat`` the
-    ``f32[n_nodes + 1]`` read and write latencies at ``node + 1``;
+    ``i32[L, n]`` placements of data, leaf, mid and top pages; ``lat`` each
+    run's ``f32[L, n_nodes + 1]`` read and write latencies at ``node + 1``;
     ``caches`` the (tags, lru) pairs ``i32[L, T, sets, ways]`` of the L1
     dTLB, STLB, PDE and PDPTE caches; ``acc`` the f32 ``[L, T]``
     accumulators of total, walk, stall and data-memory cycles;
@@ -710,18 +713,20 @@ def fast_window_ref(va, is_write, thr, oom_killed, nodes, lat, caches, acc,
     walk reads; ``hot`` the i32 ``[L, n_map]`` access and write counts;
     ``row_counts`` three i32 ``[L, R]`` views to which each row's L1 hits,
     STLB hits and walks since the call, summed over threads, are added;
-    row r is stamped ``now0 + r``; ``costs`` (llc_hit, stlb_hit, cpu_work,
-    data_stall_frac).  Node ids index ``lat`` clamped to its length, and
-    page ids the placements clamped to theirs.  Every tensor but the
-    returned one is updated in place.  Returns ``cum f32[L, R, 4, T]``:
-    the four accumulators after each row, per thread."""
+    row r is stamped ``now0 + r``; ``costs`` each run's ``f32[L, 4]``
+    (llc_hit, stlb_hit, cpu_work, data_stall_frac).  Node ids index
+    ``lat`` clamped to its length, and page ids the placements clamped to
+    theirs.  Every tensor but the returned one is updated in place.
+    Returns ``cum f32[L, R, 4, T]``: the four accumulators after each row,
+    per thread."""
     L, R, T = va.shape
     N = L * T
     dev = va.device
-    llc_hit, stlb_hit, cpu_work, frac = (float(np.float32(c)) for c in costs)
+    # each run's costs, one row per (run, thread)
+    llc_hit, stlb_hit, cpu_work, frac = costs.repeat_interleave(T, 0).unbind(1)
     m_all, flags, terms = fast_window_rows(va, is_write, thr, oom_killed,
                                            nodes, lat, now0, map_shift,
-                                           radix_bits, llc_hit)
+                                           radix_bits, costs[:, 0])
     views = [(t.view(N, *t.shape[2:]), r.view(N, *r.shape[2:]))
              for t, r in caches]
     (l1, l1r), (stlb, stlbr), (pde, pder), (pdpte, pdpter) = views
@@ -779,16 +784,25 @@ def fast_window_ref(va, is_write, thr, oom_killed, nodes, lat, caches, acc,
     return cum
 
 
+# the costs ``fast_window_inputs`` gives every run unless told otherwise:
+# CostConfig()'s (llc_hit, stlb_hit, cpu_work, data_stall_frac)
+FAST_WINDOW_COSTS = (40.0, 10.0, 60.0, 0.6)
+
+
 def fast_window_inputs(mc, L, R, T, seed, *, inactive=0.1, oom=False,
-                       device="cpu"):
+                       costs=None, step_major=False, device="cpu"):
     """Drawn arguments of ``ops.fast_window`` on machine ``mc``'s geometry:
     ``(args, kw)``, ``ops.fast_window(*args, **kw)``.  Granules come from
     a hot set of 16 (so every cache hits) and the whole map (so each
-    misses); placements are drawn over the nodes and -1; cache tags sit in
-    their sets, a fifth of the ways are empty, and lru stamps share a few
-    values (ties); ``inactive`` rows have ``va = -1``; ``oom`` makes the
-    state OOM-killed (every row inactive).  The row counts are three
-    columns of one ``[R, 9]`` table per run, as the timeline's."""
+    misses); placements are drawn over the nodes and -1; each run draws
+    its own latency tables; cache tags sit in their sets, a fifth of the
+    ways are empty, and lru stamps share a few values (ties); ``inactive``
+    rows have ``va = -1``; ``oom`` makes the state OOM-killed (every row
+    inactive); ``costs`` is one (llc_hit, stlb_hit, cpu_work,
+    data_stall_frac) per run (``FAST_WINDOW_COSTS`` for each by default);
+    ``step_major`` lays the trace rows out as the engine keeps them,
+    ``[R, L, ...]`` tables seen through transposed views.  The row counts
+    are three columns of one ``[R, 9]`` table per run, as the timeline's."""
     g = torch.Generator().manual_seed(seed)
     rb, n_map = mc.radix_bits, mc.n_map
     hot = torch.randint(0, n_map, (16,), generator=g)
@@ -813,8 +827,8 @@ def fast_window_inputs(mc, L, R, T, seed, *, inactive=0.1, oom=False,
     oom_killed = torch.full((L,), bool(oom))
     nodes = [ints(-1, mc.n_nodes, (L, n)) for n in (
         n_map, mc.n_leaf_pages, mc.n_mid_pages, mc.n_top_pages)]
-    lat = [(torch.rand(mc.n_nodes + 1, generator=g) * 600).to(torch.float32)
-           for _ in range(2)]
+    lat = [(torch.rand((L, mc.n_nodes + 1), generator=g) * 600)
+           .to(torch.float32) for _ in range(2)]
     now0 = 1000 + seed
     caches = []
     for sets, ways, shift in ((mc.l1_tlb_sets, mc.l1_tlb_ways, 0),
@@ -834,13 +848,20 @@ def fast_window_inputs(mc, L, R, T, seed, *, inactive=0.1, oom=False,
     counters = [ints(0, 1 << 20, (L,)) for _ in range(4)]
     hot_counts = [ints(0, 100, (L, n_map)) for _ in range(2)]
     table = ints(0, 1 << 20, (L, R, 9))
+    cost_rows = torch.tensor([FAST_WINDOW_COSTS] * L if costs is None
+                             else [tuple(c) for c in costs], dtype=torch.float32)
+    if step_major:
+        va, is_write, thr = (x.transpose(0, 1).contiguous()
+                             for x in (va, is_write, thr))
     args = [va, is_write, thr, oom_killed, nodes, lat, caches, acc, counters,
-            hot_counts, table]
+            hot_counts, table, cost_rows]
     args = _to_device(args, device)
-    table = args.pop()
+    cost_rows, table = args.pop(), args.pop()
+    if step_major:
+        args[:3] = (x.transpose(0, 1) for x in args[:3])
     args.append([table[..., c] for c in (7, 8, 4)])
     kw = dict(now0=now0, map_shift=mc.map_shift, radix_bits=rb,
-              thp=mc.page_order > 0, costs=(40.0, 10.0, 60.0, 0.6))
+              thp=mc.page_order > 0, costs=cost_rows)
     return args, kw
 
 

@@ -13,12 +13,14 @@ import numpy as np
 import pytest
 
 import repro.core as jc
+from repro.core.ref import OracleSim
 import repro_torch.core as tc
 from repro_torch.core import sim as tsim
 from repro_torch.kernels import ops
 
 from test_blocked import (POLICIES, fault_heavy_trace, make_trace,
                           steady_trace, tiny_machine)
+from test_ntier import CYCLE_KEYS, EXACT_KEYS
 from test_torch_engine import to_port, tsim_fields
 from test_torch_engine_jax import assert_same_run
 
@@ -150,6 +152,37 @@ def test_resume_mid_block():
                     for k, v in res.timeline.items()}
     res.trace_name = want.trace_name
     assert_same_run(want, res, "resumed, port blocked vs JAX")
+
+
+def wide_cache_machine():
+    """A 4-thread radix-6 machine whose L1 dTLB, STLB and both walk caches
+    have more than 32 ways (the fast-window kernel folds a lane's ways
+    lane, lane + 32, ... into its key)."""
+    return jc.MachineConfig(n_threads=4, dram_pages_per_node=600,
+                            nvmm_pages_per_node=2400, va_pages=1 << 12,
+                            radix_bits=6, l1_tlb_sets=1, l1_tlb_ways=40,
+                            stlb_sets=2, stlb_ways=48, pde_pwc_entries=64,
+                            pdpte_pwc_entries=40)
+
+
+def test_wide_cache_machine_bitwise():
+    """Caches of more than 32 ways run on the default engine: the port's
+    blocked run == its per-step run bitwise, == JAX's blocked engine, and
+    == ``OracleSim`` (the summary keys)."""
+    mc = wide_cache_machine()
+    pc = jc.linux_default()
+    trace = jc.workloads.kv_store(mc, 1 << 10, run_steps=256, seed=1)
+    res = check_case(mc, pc, trace)
+    runner = port_blocked(mc, pc).runner(to_port(trace))
+    assert runner.fast_segments > 0
+    oracle = OracleSim(mc, jc.CostConfig(), pc)
+    oracle.run(trace)
+    ref, got = oracle.summary(), res.summary()
+    for k in EXACT_KEYS:
+        assert got[k] == ref[k], f"{k}: port={got[k]} oracle={ref[k]}"
+    for k in CYCLE_KEYS:
+        np.testing.assert_allclose(got[k], ref[k], rtol=1e-5, err_msg=k)
+    assert got["stlb_hits"] > 0 and got["walks"] > 0
 
 
 def test_window_tiling_shape_independence():

@@ -348,6 +348,47 @@ def test_simulator_on_the_card_matches_the_cpu_route(cuda_device, policy):
         _assert_same_run(card, cpu)
 
 
+@pytest.mark.cuda
+def test_sweep_on_the_card_equals_solo_runs(cuda_device):
+    """A 3-lane sweep on the card, on a machine whose caches have more than
+    32 ways: each lane == its solo run on the card bit for bit, and ==
+    the CPU route's sweep lane."""
+    import dataclasses
+
+    from repro_torch import core
+    mc = core.MachineConfig(n_threads=8, va_pages=1 << 13, radix_bits=6,
+                            tier_pages_per_node=(400, 300, 2400),
+                            l1_tlb_ways=40, stlb_sets=4, stlb_ways=48,
+                            pde_pwc_entries=64, pdpte_pwc_entries=33)
+    pols = [dataclasses.replace(getattr(core, p)(), autonuma_period=32,
+                                autonuma_budget=b)
+            for p, b in (("linux_default", 64), ("bhi_mig", 32),
+                         ("nomad", 16))]
+    trace = core.workloads.kv_store(mc, 1 << 12, 256)
+    ccs = [core.CostConfig(), core.CostConfig(llc_hit=55, cpu_work=31),
+           core.CostConfig(data_stall_frac=0.25)]
+    lanes = core.sweep_lanes(mc, ccs, pols, [trace] * 3)
+    cpu = core.sweep_lanes(mc, ccs, pols, [trace] * 3, device="cpu")
+    for lane, cc, pc, want in zip(lanes, ccs, pols, cpu):
+        solo = core.TieredMemSimulator(mc=mc, cc=cc, pc=pc).run(trace)
+        for (k, a), (_, b) in zip(_fields(lane.final_state),
+                                  _fields(solo.final_state)):
+            assert a.dtype == b.dtype and (a == b).all(), k
+        for k in lane.timeline:
+            assert (lane.timeline[k] == solo.timeline[k]).all(), k
+        _assert_same_run(lane, want)
+
+
+def _fields(state, prefix=""):
+    import dataclasses
+    for f in dataclasses.fields(state):
+        v = getattr(state, f.name)
+        if dataclasses.is_dataclass(v):
+            yield from _fields(v, prefix + f.name + ".")
+        else:
+            yield prefix + f.name, v
+
+
 def _assert_same_run(card, cpu):
     import dataclasses
 
@@ -398,10 +439,10 @@ def test_fast_window_kernel_matches_plain_version(cuda_device):
                              (256, 32, 3, False), (64, 32, 1, True)):
             want_args, kw = ref.fast_window_inputs(mc, L, R, T, seed=calls,
                                                    oom=oom)
-            got_args, _ = ref.fast_window_inputs(mc, L, R, T, seed=calls,
-                                                 oom=oom, device=cuda_device)
+            got_args, got_kw = ref.fast_window_inputs(
+                mc, L, R, T, seed=calls, oom=oom, device=cuda_device)
             want = ops.fast_window(*want_args, **kw)
-            got = ops.fast_window(*got_args, **kw)
+            got = ops.fast_window(*got_args, **got_kw)
             calls += 1
             for g, w in zip([got] + _fast_window_updates(got_args),
                             [want] + _fast_window_updates(want_args)):

@@ -37,14 +37,23 @@ from test_torch_engine import to_port, tsim_fields
 MACHINES = {f"{fn}(thp={thp})": (fn, thp)
             for fn in ("benchmark_machine", "cxl_machine")
             for thp in (False, True)}
+# caches of more than 32 ways on benchmark_machine()'s geometry: the kernel
+# folds a lane's ways lane, lane + 32, ... into its key
+MACHINES["wide_machine(thp=False)"] = ("wide_machine", False)
 # (L, R, T, oom)
 SHAPES = [(1, 1, 4, False), (3, 7, 8, False), (1, 64, 8, False),
           (3, 128, 4, False), (1, 64, 4, True)]
 
 
+def wide_machine(thp=False):
+    return dataclasses.replace(cfg.benchmark_machine(thp=thp), l1_tlb_ways=40,
+                               stlb_sets=32, stlb_ways=48, pde_pwc_entries=64,
+                               pdpte_pwc_entries=33)
+
+
 def machine(name):
     fn, thp = MACHINES[name]
-    return getattr(cfg, fn)(thp=thp)
+    return (wide_machine if fn == "wide_machine" else getattr(cfg, fn))(thp=thp)
 
 
 # -- the oracle: the two-step path before the fused kernel --------------------
@@ -89,10 +98,10 @@ def old_precompute(va, w, thr, oom, nodes, lat, now0, mc, llc_hit):
 def old_row_loop(m, flags, terms, caches, acc, now0, radix_bits, thp, costs):
     """The row loop of the plain version before the fused kernel: ``m i32[L,
     R, T]``, ``flags bool[L, R, T, 4]``, ``terms f32[L, R, T, 4]`` ->
-    ``(cum, counts)``, each ``[L, R, 4, T]``."""
+    ``(cum, counts)``, each ``[L, R, 4, T]``; ``costs`` ``f32[L, 4]``."""
     L, R, T = m.shape
     N = L * T
-    llc_hit, stlb_hit, cpu_work, frac = (float(np.float32(c)) for c in costs)
+    llc_hit, stlb_hit, cpu_work, frac = costs.repeat_interleave(T, 0).unbind(1)
     views = [(t.view(N, *t.shape[2:]), r.view(N, *r.shape[2:]))
              for t, r in caches]
     (l1, l1r), (stlb, stlbr), (pde, pder), (pdpte, pdpter) = views
@@ -145,10 +154,10 @@ def two_step(mc, args, kw):
     (va, w, thr, oom, nodes, lat, caches, acc, counters, hot,
      row_counts) = args
     L = va.shape[0]
-    llc_hit = float(np.float32(kw["costs"][0]))
     per_run = [old_precompute(va[i], w[i], thr[i], oom[i],
-                              [n[i] for n in nodes], lat, kw["now0"], mc,
-                              llc_hit) for i in range(L)]
+                              [n[i] for n in nodes], [t[i] for t in lat],
+                              kw["now0"], mc, float(kw["costs"][i, 0]))
+               for i in range(L)]
     m, flags, terms = (torch.stack(x) for x in zip(*per_run))
     cum, counts = old_row_loop(m, flags, terms, caches, acc, kw["now0"],
                                kw["radix_bits"], kw["thp"], kw["costs"])
@@ -223,11 +232,11 @@ def mirror(args, kw):
     L, R, T = va.shape
     N = L * T
     rb, thp = kw["radix_bits"], kw["thp"]
-    llc_hit, stlb_hit, cpu_work, frac = (float(np.float32(c))
-                                         for c in kw["costs"])
+    llc_hit, stlb_hit, cpu_work, frac = kw["costs"].repeat_interleave(
+        T, 0).unbind(1)
     m, flags, terms = ref.fast_window_rows(va, w, thr, oom, nodes, lat,
                                            kw["now0"], kw["map_shift"], rb,
-                                           llc_hit)
+                                           kw["costs"][:, 0])
     m_rows = m.permute(1, 0, 2).reshape(R, N)                 # [R, N]
     act, leaf_llc, up1, up2 = flags.permute(3, 1, 0, 2).reshape(4, R, N)
     x = terms.permute(3, 1, 0, 2).reshape(4, R, N)
@@ -295,29 +304,78 @@ def test_kernel_order_mirror_matches_plain_version(name, shape):
 
 
 def _wider_cache(args, kw, c, sets, ways):
+    """Cache ``c`` of every thread replaced by a drawn ``sets x ways`` one
+    (tags in their sets, a fifth of the ways empty, tied stamps)."""
+    g = torch.Generator().manual_seed(sets * 1000 + ways)
     L, T = args[0].shape[0], args[0].shape[2]
-    empty = torch.full((L, T, sets, ways), -1, dtype=torch.int32)
-    args[6][c] = (empty, empty.clone())
+    shape = (L, T, sets, ways)
+    tags = torch.randint(0, 64, shape, generator=g) // sets * sets \
+        + torch.arange(sets)[:, None]
+    empty = torch.rand(shape, generator=g) < 0.2
+    lru = kw["now0"] - 1 - torch.randint(0, 6, shape, generator=g)
+    args[6][c] = (torch.where(empty, -1, tags).to(torch.int32),
+                  torch.where(empty, -1, lru).to(torch.int32))
 
 
 def _late_stamps(args, kw):
     kw["now0"] = (1 << 32) // 32
 
 
-@pytest.mark.parametrize("bad, msg", [
-    (lambda a, kw: _wider_cache(a, kw, 1, 16, 33), "at most 32 ways"),
-    (lambda a, kw: _wider_cache(a, kw, 0, 1, 64), "at most 32 ways"),
+def _too_many_entries(args, kw):
+    _wider_cache(args, kw, 1, ops.MAX_STAGED_ENTRIES // 64, 65)
+
+
+@pytest.mark.parametrize("change, msg", [
+    (lambda a, kw: _wider_cache(a, kw, 1, 16, 33), None),
+    (lambda a, kw: _wider_cache(a, kw, 0, 1, 64), None),
     (lambda a, kw: _wider_cache(a, kw, 2, 2, 4), "one set"),
     (_late_stamps, "32-bit way ranking"),
-], ids=["stlb-33-ways", "l1-64-ways", "walk-cache-2-sets", "stamps"])
-def test_fast_window_rejects_what_the_kernel_cannot_take(bad, msg):
-    """The geometry the kernel is built for (a set's ways one a lane, the
-    walk caches one set, stamps that rank in 32 bits) is checked by the
-    wrapper on every device, so the CPU route refuses it too."""
-    args, kw = ref.fast_window_inputs(cfg.benchmark_machine(), 1, 4, 4, 9)
-    bad(args, kw)
-    with pytest.raises(ValueError, match=msg):
-        ops.fast_window(*args, **kw)
+    (_too_many_entries, "shared memory"),
+], ids=["stlb-33-ways", "l1-64-ways", "walk-cache-2-sets", "stamps",
+        "staged-entries"])
+def test_fast_window_rejects_what_the_kernel_cannot_take(change, msg):
+    """The geometry the kernel is built for (the walk caches one set, stamps
+    that rank in 32 bits, a thread's caches within the shared memory it
+    stages them in) is checked by the wrapper on every device, so the CPU
+    route refuses the rest too.  A cache of more than 32 ways is within
+    it: the plain route runs it and equals the mirror of the kernel's
+    order."""
+    mc = cfg.benchmark_machine()
+    args, kw = ref.fast_window_inputs(mc, 1, 4, 4, 9)
+    change(args, kw)
+    if msg is not None:
+        with pytest.raises(ValueError, match=msg):
+            ops.fast_window(*args, **kw)
+        return
+    want, _ = ref.fast_window_inputs(mc, 1, 4, 4, 9)
+    change(want, kw)
+    assert_same([mirror(args, kw)] + flat_state(args),
+                [ops.fast_window(*want, **kw)] + flat_state(want), "wide")
+
+
+def test_lanes_with_their_own_costs_equal_single_runs():
+    """``L = 3`` runs, each with its own latency tables and CostConfig's
+    four costs, in one call == each run alone (``L = 1``), bitwise."""
+    mc = cfg.cxl_machine()
+    costs = [(40.0, 10.0, 60.0, 0.6), (55.0, 7.0, 31.0, 0.25),
+             (12.0, 30.0, 90.0, 0.9)]
+    together, kw = ref.fast_window_inputs(mc, 3, 64, 8, 31, costs=costs,
+                                          step_major=True)
+    alone, _ = ref.fast_window_inputs(mc, 3, 64, 8, 31, costs=costs,
+                                      step_major=True)
+    assert not together[0].is_contiguous()
+    cum = ops.fast_window(*together, **kw)
+
+    def lane(x, i):
+        if isinstance(x, (list, tuple)):
+            return [lane(y, i) for y in x]
+        return x[i:i + 1]
+
+    cums = [ops.fast_window(*lane(alone, i), **dict(kw, costs=kw["costs"][i:i + 1]))
+            for i in range(3)]
+    assert_same([cum] + flat_state(together),
+                [torch.cat(cums)] + flat_state(alone), "lanes")
+    assert not torch.equal(cum[0], cum[1])
 
 
 # -- the set index without a division -----------------------------------------
@@ -399,7 +457,7 @@ def drawn_state(mc, seed, oom):
     their sets, a fifth of the ways empty, tied stamps below the step),
     accumulators, counters and hotness counts."""
     rng = np.random.default_rng(seed)
-    st = tc.init_state(mc, "cpu").to_numpy()
+    st = tc.init_state(mc, "cpu").to_numpy().lane(0)
     step = 500
     n_nodes = mc.n_nodes
 

@@ -34,8 +34,8 @@ def test_no_source_imports_jax_or_repro():
 def test_simulator_modules_are_all_checked():
     assert CORE == ["repro_torch.core.alloc", "repro_torch.core.config",
                     "repro_torch.core.migrate", "repro_torch.core.sim",
-                    "repro_torch.core.state", "repro_torch.core.tlbs",
-                    "repro_torch.core.workloads"]
+                    "repro_torch.core.state", "repro_torch.core.sweep",
+                    "repro_torch.core.tlbs", "repro_torch.core.workloads"]
 
 
 def test_import_leaves_jax_out():

@@ -298,10 +298,16 @@ def test_init_state_matches_jax():
     for make in MACHINES[:5]:
         jm, tm = make(jc), make(tc)
         want = jax.device_get(jstate.init_state(jm))
-        got = tc.init_state(tm, device="cpu").to_numpy()
-        for (name, x), (_, y) in zip(fields(want), fields(got)):
-            assert (x.dtype, x.shape) == (y.dtype, y.shape), name
-            np.testing.assert_array_equal(x, y, err_msg=name)
+        # the port's state has a lane axis: L = 1 by default, and each of
+        # L = 3 lanes is the reference's empty machine
+        for lanes in (1, 3):
+            kw = {} if lanes == 1 else dict(lanes=lanes)
+            got = tc.init_state(tm, device="cpu", **kw).to_numpy()
+            for lane in range(lanes):
+                for (name, x), (_, y) in zip(fields(want),
+                                             fields(got.lane(lane))):
+                    assert (x.dtype, x.shape) == (y.dtype, y.shape), name
+                    np.testing.assert_array_equal(x, y, err_msg=name)
     a = np.array([-1, 0, 1, 2, 5, 3], np.int32)
     b = np.array([3, 1, 4, 0, 2, 1], np.int32)
     np.testing.assert_array_equal(np.asarray(jstate.is_dram(jnp.asarray(a))),
@@ -322,7 +328,7 @@ def fields(state, prefix=""):
 
 
 def test_core_exports_the_jax_core_less_the_sweeps():
-    not_yet = {"sweep", "sweep_lanes", "stack_policies", "lane_mesh",
-               "sweep_compile_count"}
+    # the sweeps are ported; the lane mesh is left out (one device)
+    not_yet = {"lane_mesh"}
     assert set(tc.__all__) == set(jc.__all__) - not_yet
     assert all(hasattr(tc, name) for name in tc.__all__)
