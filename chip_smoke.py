@@ -1288,8 +1288,9 @@ def main() -> int:
     for kname, opc in sass.items():
         check(opc["FFMA"] == 0 and opc["FFMA32I"] == 0,
               f"{kname}: {opc['FFMA']} FFMA in the SASS of fast_window.cu")
-        log(f"[2] fast_window.cu SASS: {sum(opc.values())} instructions, "
-            f"FFMA {opc['FFMA']}, FMUL {opc['FMUL']}, FADD {opc['FADD']}")
+        log(f"[2] fast_window.cu SASS {kname}: {sum(opc.values())} "
+            f"instructions, FFMA {opc['FFMA']}, FMUL {opc['FMUL']}, "
+            f"FADD {opc['FADD']}")
 
     # -- 3. kernels against their plain versions ------------------------------
     gen = torch.Generator(device="cpu").manual_seed(0)

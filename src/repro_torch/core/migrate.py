@@ -174,11 +174,35 @@ def _add_at(idx: torch.Tensor, vals: torch.Tensor, n_nodes: int) -> torch.Tensor
     return out.scatter_add_(1, idx.clamp(0, n_nodes - 1).long(), vals.to(I32))
 
 
+def lane_take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """``arr[l, idx[l, ...]]`` for ``arr`` ``[L, n]`` and an integer
+    ``idx`` ``[L, ...]``.  One lane reads its row with ``index_select``,
+    which takes the int32 index as it is; more lanes ``gather``, which
+    needs an int64 copy of it (one more device op a call)."""
+    L = arr.shape[0]
+    if L == 1:
+        out = arr.index_select(1, idx.reshape(-1))
+        return out if idx.dim() == 2 else out.view(idx.shape)
+    return arr.gather(1, idx.reshape(L, -1).long()).view(idx.shape)
+
+
+def lane_add_at(arr: torch.Tensor, idx: torch.Tensor,
+                vals: torch.Tensor) -> torch.Tensor:
+    """``arr[l, idx[l, ...]] += vals[l, ...]`` in place (integers, so the
+    order of the adds is free); one lane through ``index_add_`` with the
+    int32 index, as :func:`lane_take`."""
+    L = arr.shape[0]
+    if vals.dim() != 2:
+        vals = vals.reshape(L, -1)
+    if L == 1:
+        return arr.index_add_(1, idx.reshape(-1), vals)
+    return arr.scatter_add_(1, idx.reshape(L, -1).long(), vals)
+
+
 def lane_lat(table: torch.Tensor, node: torch.Tensor) -> torch.Tensor:
     """Each lane's ``table`` (``[L, n_nodes + 1]``) at ``node + 1``
     (``node`` ``[L, ...]``)."""
-    L = node.shape[0]
-    return table.gather(1, (node.long() + 1).reshape(L, -1)).view(node.shape)
+    return lane_take(table, node + 1)
 
 
 def autonuma_scan(st: SimState, mc: MachineConfig, cc: CostConfig,

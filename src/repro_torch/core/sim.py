@@ -63,7 +63,7 @@ from . import migrate as migrate_mod
 from . import tlbs
 from .config import (CostConfig, MachineConfig, PolicyConfig, INTERLEAVE,
                      PT_BIND_HIGH, PT_FOLLOW_DATA)
-from .migrate import lane_lat
+from .migrate import lane_add_at, lane_lat, lane_take
 from .state import SimState, init_state, is_dram
 from ..device import resolve_device
 from ..kernels import ops
@@ -455,7 +455,9 @@ class Stepper:
     ``budget`` is the scan's candidate bound (default: the lanes' largest
     ``autonuma_budget``); ``group`` the allocator's slots per step
     (default: the lanes' most winners in a step, a power of two, at most
-    ``n_threads``); a resumed ``state`` holds one run (``L = 1``).
+    ``n_threads``); either may raise its default and not lower it, as the
+    reference's sweep checks.  A resumed ``state`` holds the lanes' runs,
+    all at one step (one run's fields without a lane axis are ``L = 1``).
     """
 
     def __init__(self, mc: MachineConfig, ccs, pcs, traces, *,
@@ -472,17 +474,24 @@ class Stepper:
         T = mc.n_threads
         shape = self.traces[0].va.shape
         for tr in self.traces:
-            if tr.va.shape[1] != T:
-                raise ValueError(f"trace has {tr.va.shape[1]} threads, "
-                                 f"machine {T}")
             if tr.va.shape != shape:
-                raise ValueError(f"lane traces must share one shape; got "
-                                 f"{tr.va.shape} vs {shape}")
+                raise ValueError(
+                    f"lane traces must share one shape; got {tr.va.shape} "
+                    f"vs {shape} — pad_trace() them first")
+        if shape[1] != T:
+            raise ValueError(f"traces have {shape[1]} threads, machine has "
+                             f"{T}")
+        period = lane_period(self.pcs)        # raises on mixed periods
         self.sequential = phase_b == "sequential"
         S = self.n_steps = shape[0]
-        self.budget = min(max(int(p.autonuma_budget) for p in self.pcs),
-                          mc.n_map) if budget is None else min(int(budget),
-                                                               mc.n_map)
+        lane_budget = min(max(int(p.autonuma_budget) for p in self.pcs),
+                          mc.n_map)
+        if budget is not None and budget < lane_budget:
+            raise ValueError(f"budget override {budget} below the lane "
+                             f"maximum {lane_budget}; a smaller top_k bound "
+                             "changes results")
+        self.budget = lane_budget if budget is None else min(int(budget),
+                                                             mc.n_map)
 
         # host arrays once per distinct trace object, fanned out to lanes
         uniq: Dict[int, int] = {}
@@ -494,10 +503,13 @@ class Stepper:
                 uniq_traces.append(tr)
             lane_of[i] = j
         scheds = [fault_schedule(tr, mc) for tr in uniq_traces]  # memoized
-        if group is None:
-            group = min(pow2ceil(max(fault_group_bound(sc) for sc in scheds)),
-                        T)
-        self.group = group
+        lane_group = min(
+            pow2ceil(max(fault_group_bound(sc) for sc in scheds)), T)
+        if group is not None and group < lane_group and not self.sequential:
+            raise ValueError(f"group override {group} below the lane "
+                             f"maximum {lane_group}; a smaller conflict-"
+                             "group bound drops allocator requests")
+        self.group = lane_group if group is None else min(int(group), T)
 
         def lanes(per_trace, dtype):
             """[S, L, ...]: the per-trace arrays, lane by lane."""
@@ -522,7 +534,7 @@ class Stepper:
         for sc in scheds:
             self.has_fault |= (sc & SCHED_DO).any(axis=1)
         self.do_scan = scan_step_mask(
-            S, lane_period(self.pcs),
+            S, period,
             enabled=any(bool(p.autonuma) for p in self.pcs),
             start_step=self.start)
         self.va = torch.as_tensor(lanes([tr.va for tr in uniq_traces],
@@ -538,8 +550,8 @@ class Stepper:
         for sc in scheds:
             win = (sc & SCHED_WINNER) > 0
             slot = np.cumsum(win, axis=1) - 1
-            row = np.full((S, group), T, np.int32)
-            rows, cols = np.nonzero(win & (slot < group))
+            row = np.full((S, self.group), T, np.int32)
+            rows, cols = np.nonzero(win & (slot < self.group))
             row[rows, slot[rows, cols]] = cols
             slots.append(row)
         self.slots = torch.as_tensor(lanes(slots, np.int32), device=dev)
@@ -565,6 +577,9 @@ class Stepper:
         self.llc_hit, self.stlb_hit, self.cpu_work, self.stall_frac = (
             x.to(F32) for x in (col.llc_hit, col.stlb_hit, col.cpu_work,
                                 col.data_stall_frac))
+        # the integer costs that the fault's f32 chain selects with where
+        self.alloc_slow, self.alloc_fast, self.oom_scan = (
+            x.to(F32) for x in (col.alloc_slow, col.alloc_fast, col.oom_scan))
         self.wait_cost = col.fault_base + self.llc_hit
         self.window_costs = torch.cat([self.llc_hit, self.stlb_hit,
                                        self.cpu_work, self.stall_frac], 1)
@@ -595,8 +610,7 @@ class Stepper:
         va_row, w_row = self.va[s], self.is_write[s]          # [L, T]
         m = torch.where(va_row >= 0, va_row >> mc.map_shift, 0).clamp(
             0, mc.n_map - 1)
-        ml = m.long()
-        data_n = st.data_node.gather(1, ml)
+        data_n = lane_take(st.data_node, m)
         mapped = data_n >= 0
         active = (va_row >= 0) & ~st.oom_killed[:, None]
         vec = active & mapped
@@ -609,11 +623,11 @@ class Stepper:
         pde_hit, pde_way, row3 = tlbs._probe(st.pde_pwc, leaf_id)
         pdpte_hit, pdpte_way, row4 = tlbs._probe(st.pdpte_pwc, mid_id)
 
-        leaf_n = st.leaf_node.gather(1, leaf_id.long())
-        mid_n = st.mid_node.gather(
-            1, mid_id.clamp(max=st.mid_node.shape[1] - 1).long())
-        top_n = st.top_node.gather(
-            1, top_id.clamp(max=st.top_node.shape[1] - 1).long())
+        leaf_n = lane_take(st.leaf_node, leaf_id)
+        mid_n = lane_take(st.mid_node,
+                          mid_id.clamp(max=st.mid_node.shape[1] - 1))
+        top_n = lane_take(st.top_node,
+                          top_id.clamp(max=st.top_node.shape[1] - 1))
 
         # the four draws of sites 1-4 (leaf, mid, top, data) at once
         draws = bern_hash(self.site_seeds, (
@@ -639,8 +653,9 @@ class Stepper:
         walk_cost = torch.where(walkn, walk, 0.0)
         walk_reads = (torch.stack(reads) & walkn).sum((0, 2), dtype=I32)
 
-        mem_lat = torch.where(w_row, lane_lat(write_lat, data_n),
-                              lane_lat(read_lat, data_n))
+        dl = data_n + 1
+        mem_lat = torch.where(w_row, lane_take(write_lat, dl),
+                              lane_take(read_lat, dl))
         data_cost = torch.where(vec, torch.where(data_llc, llc_hit, mem_lat),
                                 0.0)
 
@@ -653,8 +668,8 @@ class Stepper:
         tlbs._write(st.pde_pwc, row3, pde_way, leaf_id, now, walkn)
         tlbs._write(st.pdpte_pwc, row4, pdpte_way, mid_id, now, walkn)
 
-        st.access_recent.scatter_add_(1, ml, vec.to(I32))
-        st.written_recent.scatter_add_(1, ml, (vec & w_row).to(I32))
+        lane_add_at(st.access_recent, m, vec.to(I32))
+        lane_add_at(st.written_recent, m, (vec & w_row).to(I32))
 
         cyc = st.cycles
         cyc.total += total
@@ -681,7 +696,6 @@ class Stepper:
         do = ((sched_row & int(SCHED_DO)) > 0) & fault_mask
         winner = ((sched_row & int(SCHED_WINNER)) > 0) & fault_mask
         tid = self.tid.expand(L, T)
-        ml = m.long()
 
         leaf_idx = m >> rb
         pt_idx = (torch.zeros_like(m),
@@ -717,14 +731,14 @@ class Stepper:
             for lvl, (idx, arr) in enumerate(zip(pt_idx, pt_arrs)))
         node_d, ok_d, commit_d = nodes[..., 4], ok[..., 4], commit[..., 4]
         st.data_node = _set_where(st.data_node, m, node_d, commit_d)
-        st.leaf_dram_children.scatter_add_(
-            1, leaf_idx.long(), (commit_d & is_dram(node_d)).to(I32))
+        lane_add_at(st.leaf_dram_children, leaf_idx,
+                    (commit_d & is_dram(node_d)).to(I32))
 
         # ---- cost model: the sequential per-thread f32 chains ----------
-        alloc_cost = torch.where(slow, col.alloc_slow[..., None],
-                                 col.alloc_fast[..., None])
+        alloc_cost = torch.where(slow, self.alloc_slow[..., None],
+                                 self.alloc_fast[..., None])
         zero_cost = col.zero_lines[..., None] * lane_lat(write_lat, nodes)
-        oom_scan = col.oom_scan
+        oom_scan = self.oom_scan
         c = torch.zeros((L, T), dtype=F32, device=m.device)
         for lvl in range(4):
             do_l = commit[..., lvl]
@@ -733,8 +747,8 @@ class Stepper:
                 + torch.where(act[..., lvl] & ~ok[..., lvl], oom_scan, 0.0)
         c = c + torch.where(ok_d, zero_cost[..., 4] + alloc_cost[..., 4],
                             oom_scan)
-        mid_n = st.mid_node.gather(1, pt_idx[2].long())   # post-commit
-        leaf_n = st.leaf_node.gather(1, leaf_idx.long())
+        mid_n = lane_take(st.mid_node, pt_idx[2])         # post-commit
+        leaf_n = lane_take(st.leaf_node, leaf_idx)
         c = c + col.fault_base + lane_lat(read_lat, mid_n) \
             + lane_lat(write_lat, leaf_n)
         fcost = torch.where(fault, c, 0.0)
@@ -746,18 +760,17 @@ class Stepper:
                          (st.pde_pwc, leaf_idx), (st.pdpte_pwc, m >> (2 * rb))):
             _, way, row = tlbs._probe(tlb, tag)
             tlbs._write(tlb, row, way, tag, now, handled)
-        st.access_recent.scatter_add_(1, ml, handled.to(I32))
-        st.written_recent.scatter_add_(1, ml, (handled & w_row).to(I32))
+        lane_add_at(st.access_recent, m, handled.to(I32))
+        lane_add_at(st.written_recent, m, (handled & w_row).to(I32))
 
         # ---- counters and OOM latch -------------------------------------
         fails = act & ~ok
         pt_commit = commit[..., :4]
         cnt = st.counters
-        cnt.pt_allocs.scatter_add_(
-            1, nodes[..., :4].clamp(0, nn - 1).reshape(L, -1).long(),
-            pt_commit.reshape(L, -1).to(I32))
-        cnt.data_allocs.scatter_add_(1, node_d.clamp(0, nn - 1).long(),
-                                     commit_d.to(I32))
+        lane_add_at(cnt.pt_allocs, nodes[..., :4].clamp(0, nn - 1),
+                    pt_commit.to(I32))
+        lane_add_at(cnt.data_allocs, node_d.clamp(0, nn - 1),
+                    commit_d.to(I32))
         cnt.slow_allocs += (pt_commit & slow[..., :4]).sum((1, 2), dtype=I32)
         cnt.faults += fault.sum(1, dtype=I32)
         cnt.oom_kills += fails.sum((1, 2), dtype=I32)
@@ -785,7 +798,7 @@ class Stepper:
         for t in range(self.mc.n_threads):
             m_t = m[:, t:t + 1]                                 # [L, 1]
             do = fault_mask[:, t:t + 1] & ~st.oom_killed[:, None]
-            now_mapped = st.data_node.gather(1, m_t.long()) >= 0
+            now_mapped = lane_take(st.data_node, m_t) >= 0
             wait = do & now_mapped
             fault = do & ~now_mapped
             wait_cost = torch.where(wait, self.wait_cost, 0.0)
@@ -795,9 +808,9 @@ class Stepper:
                              (st.pde_pwc, m_t >> rb),
                              (st.pdpte_pwc, m_t >> (2 * rb))):
                 tlbs.update_one(tlb, t, tag, now, handled)
-            st.access_recent.scatter_add_(1, m_t.long(), handled.to(I32))
-            st.written_recent.scatter_add_(
-                1, m_t.long(), (handled & w_row[:, t:t + 1]).to(I32))
+            lane_add_at(st.access_recent, m_t, handled.to(I32))
+            lane_add_at(st.written_recent, m_t,
+                        (handled & w_row[:, t:t + 1]).to(I32))
             all_cost = fcost + wait_cost
             cyc.total[:, t:t + 1] += all_cost
             cyc.fault[:, t:t + 1] += all_cost
@@ -814,7 +827,7 @@ class Stepper:
         L = self.L
         thp = mc.page_order > 0
         tid, dpol, ppol = self.tid[t], self.pc.data_policy, self.pc.pt_policy
-        old = arr.gather(1, idx.long())
+        old = lane_take(arr, idx)
         missing = gate & (old < 0)
         # recompute per allocation: the interleave cursor advances with
         # every page handed out
@@ -840,8 +853,8 @@ class Stepper:
         arr.scatter_(1, idx.long(), torch.where(do, node, old))
         zero_cost = torch.where(
             do, col.zero_lines * lane_lat(self.tables.write, node), 0.0)
-        acost = torch.where(do, torch.where(slow, col.alloc_slow,
-                                            col.alloc_fast), 0.0)
+        acost = torch.where(do, torch.where(slow, self.alloc_slow,
+                                            self.alloc_fast), 0.0)
         adv = do & (ppol == PT_FOLLOW_DATA)[:, None] \
             & (dpol == INTERLEAVE)[:, None]
         st.node_free = torch.where(do, nf, st.node_free)
@@ -851,11 +864,10 @@ class Stepper:
         st.oom_step = torch.where(oom.reshape(L) & (st.oom_step < 0), now,
                                   st.oom_step)
         cnt = st.counters
-        cnt.pt_allocs.scatter_add_(1, node.clamp(0, mc.n_nodes - 1).long(),
-                                   do.to(I32))
+        lane_add_at(cnt.pt_allocs, node.clamp(0, mc.n_nodes - 1), do.to(I32))
         cnt.slow_allocs += (do & slow).to(I32).reshape(L)
         cnt.oom_kills += oom.to(I32).reshape(L)
-        return c + zero_cost + acost + torch.where(oom, col.oom_scan, 0.0)
+        return c + zero_cost + acost + torch.where(oom, self.oom_scan, 0.0)
 
     def _fault_sequential(self, t: int, m_t: torch.Tensor,
                           fault: torch.Tensor, now: int) -> torch.Tensor:
@@ -887,17 +899,18 @@ class Stepper:
         oom = fault & ~ok
         ml = m_t.long()
         st.data_node.scatter_(1, ml, torch.where(
-            fault, torch.where(ok, node, -1), st.data_node.gather(1, ml)))
+            fault, torch.where(ok, node, -1), lane_take(st.data_node, m_t)))
         leaf_i = m_t >> rb
-        st.leaf_dram_children.scatter_add_(1, leaf_i.long(),
-                                           (done & is_dram(node)).to(I32))
+        lane_add_at(st.leaf_dram_children, leaf_i,
+                    (done & is_dram(node)).to(I32))
         adv = (dpol == INTERLEAVE)[:, None] & done
         c = c + torch.where(ok, col.zero_lines * lane_lat(write_lat, node)
-                            + torch.where(slow, col.alloc_slow, col.alloc_fast),
-                            col.oom_scan)
-        mid_n = st.mid_node.gather(
-            1, (m_t >> (2 * rb)).clamp(max=st.mid_node.shape[1] - 1).long())
-        leaf_n = st.leaf_node.gather(1, leaf_i.long())
+                            + torch.where(slow, self.alloc_slow,
+                                          self.alloc_fast),
+                            self.oom_scan)
+        mid_n = lane_take(st.mid_node,
+                          (m_t >> (2 * rb)).clamp(max=st.mid_node.shape[1] - 1))
+        leaf_n = lane_take(st.leaf_node, leaf_i)
         c = c + col.fault_base + lane_lat(read_lat, mid_n) \
             + lane_lat(write_lat, leaf_n)
         st.node_free = torch.where(done, nf, st.node_free)
@@ -907,8 +920,8 @@ class Stepper:
         st.oom_step = torch.where(oom.reshape(L) & (st.oom_step < 0), now,
                                   st.oom_step)
         cnt = st.counters
-        cnt.data_allocs.scatter_add_(1, node.clamp(0, mc.n_nodes - 1).long(),
-                                     done.to(I32))
+        lane_add_at(cnt.data_allocs, node.clamp(0, mc.n_nodes - 1),
+                    done.to(I32))
         cnt.faults += fault.to(I32).reshape(L)
         cnt.oom_kills += oom.to(I32).reshape(L)
         return torch.where(fault, c, 0.0)

@@ -47,8 +47,7 @@ from typing import List, Optional, Sequence, Union
 
 from .config import CostConfig, MachineConfig, PolicyConfig
 from .sim import (DEFAULT_BLOCK, BlockedRunner, RunResult, Stepper, Trace,
-                  _normalize_blocked, check_engine, fault_group_bound,
-                  fault_schedule, lane_period, pow2ceil, stack_leaves)
+                  _normalize_blocked, check_engine, pow2ceil, stack_leaves)
 
 # The reference compiles one program per distinct signature; this set
 # holds the signatures its sweeps would have compiled (see compile_count).
@@ -129,69 +128,27 @@ def sweep_runner(mc: MachineConfig,
     lanes' engine made (a ``sim.BlockedRunner``, or a ``sim.Stepper`` for
     ``engine="per_step"``), nothing run yet; ``advance`` runs windows (or
     steps), ``results`` gives a RunResult per lane."""
-    if engine not in ("blocked", "per_step"):
-        raise ValueError(f"unknown engine {engine!r}")
     check_engine(engine, phase_b, debug)
     if lane_sharding is not None:
         raise ValueError(f"lane_sharding must be None: the port runs its "
                          f"lanes on one device, got {lane_sharding!r}")
-    policies = list(policies)
-    ccs = list(ccs)
-    tr_list = list(traces)
-    L = len(policies)
-    if L == 0:
+    if len(policies) == 0:
         raise ValueError("sweep_lanes needs at least one lane")
-    if not (len(ccs) == len(tr_list) == L):
-        raise ValueError(
-            f"lane lists disagree: {len(ccs)} costs, {L} policies, "
-            f"{len(tr_list)} traces")
-
-    shape = tr_list[0].va.shape
-    for tr in tr_list:
-        if tr.va.shape != shape:
-            raise ValueError(
-                f"sweep traces must share one shape; got {tr.va.shape} vs "
-                f"{shape} — pad_trace() them first")
-    if shape[1] != mc.n_threads:
-        raise ValueError(f"traces have {shape[1]} threads, machine has "
-                         f"{mc.n_threads}")
-    lane_period(policies)                 # raises on mixed periods
-
-    lane_budget = min(max(int(p.autonuma_budget) for p in policies),
-                      mc.n_map)
-    if budget is not None and budget < lane_budget:
-        raise ValueError(f"budget override {budget} below the lane maximum "
-                         f"{lane_budget}; a smaller top_k bound changes "
-                         "results")
-    eff_budget = min(budget if budget is not None else lane_budget, mc.n_map)
-
-    eff_group: Optional[int] = None
-    if phase_b == "batched":
-        scheds = {id(tr): fault_schedule(tr, mc) for tr in tr_list}
-        lane_group = min(
-            pow2ceil(max(fault_group_bound(sc) for sc in scheds.values())),
-            mc.n_threads)
-        if group is not None and group < lane_group:
-            raise ValueError(f"group override {group} below the lane "
-                             f"maximum {lane_group}; a smaller conflict-"
-                             "group bound drops allocator requests")
-        eff_group = min(group if group is not None else lane_group,
-                        mc.n_threads)
-
-    S = shape[0]
-    eff_block = min(int(block), pow2ceil(S))
-    kw = dict(phase_b=phase_b, device=device, budget=eff_budget,
-              group=eff_group)
+    # the engine checks the lanes, their traces and the overrides
+    kw = dict(phase_b=phase_b, device=device, budget=budget, group=group)
     if engine == "blocked":
-        runner = BlockedRunner(mc, ccs, policies, tr_list, block=eff_block,
-                               **kw)
-        geom = runner.plan.geom
-        sig = _normalize_blocked(eff_budget, phase_b, eff_group, geom)
+        runner = BlockedRunner(mc, ccs, policies, traces, block=block, **kw)
+        stp, eff_block, geom = runner.stepper, runner.block, runner.plan.geom
         program = runner.plan.n_windows
     else:
-        runner = Stepper(mc, ccs, policies, tr_list, **kw)
-        geom, sig, program = None, (eff_budget, phase_b, eff_group), S
-    _SIGNATURES.add((mc, *sig, engine, eff_block, geom, L, program))
+        runner = stp = Stepper(mc, ccs, policies, traces, **kw)
+        eff_block = min(int(block), pow2ceil(stp.n_steps))
+        geom, program = None, stp.n_steps
+    eff_group = stp.group if phase_b == "batched" else None
+    sig = (stp.budget, phase_b, eff_group)
+    if engine == "blocked":
+        sig = _normalize_blocked(*sig, geom)
+    _SIGNATURES.add((mc, *sig, engine, eff_block, geom, stp.L, program))
     return runner
 
 

@@ -19,6 +19,8 @@ structure linearly, as the reference's functional updates do.
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 from typing import Tuple
 
 import torch
@@ -39,23 +41,34 @@ def make_tlb(n_threads: int, sets: int, ways: int, device,
                     lru=torch.full(shape, -1, dtype=torch.int32, device=device))
 
 
+@functools.lru_cache(maxsize=64)
+def _rows_and_ways(shape: Tuple[int, ...], sets: int, ways: int, device):
+    """The constants of a probe, made once per geometry (the step loop
+    probes the same four caches every step): each leading index's first
+    set row in the ``[N * sets, ways]`` view (i64 of ``shape``), and the
+    way ids."""
+    return (torch.arange(0, math.prod(shape) * sets, sets,
+                         device=device).view(shape),
+            torch.arange(ways, device=device))
+
+
 def _probe(tlb: TlbArray, tag: torch.Tensor):
     """(hit bool, way i64, flat i64), each of ``tag``'s shape (one tag per
     leading index of the cache): ``flat`` is each tag's set row in the
     ``[N * sets, ways]`` view."""
     sets, ways = tlb.tags.shape[-2:]
-    N = tag.numel()
-    flat = torch.arange(0, N * sets, sets, device=tag.device) \
-        + tag.reshape(N) % sets
-    set_tags = tlb.tags.reshape(N * sets, ways).index_select(0, flat)
-    set_lru = tlb.lru.reshape(N * sets, ways).index_select(0, flat)
-    way_ids = torch.arange(ways, device=tag.device)
-    hit_way = torch.where(set_tags == tag.reshape(N, 1), way_ids, ways).amin(1)
+    base, way_ids = _rows_and_ways(tuple(tag.shape), sets, ways, tag.device)
+    flat = base + tag % sets
+    rows = flat.view(-1)
+    set_tags = tlb.tags.reshape(-1, ways).index_select(0, rows)
+    set_lru = tlb.lru.reshape(-1, ways).index_select(0, rows)
+    hit_way = torch.where(set_tags == tag.reshape(-1, 1), way_ids,
+                          ways).amin(1)
     hit = hit_way < ways
     victim = ((set_lru.long() + 1) * ways + way_ids).amin(1) % ways
     shape = tag.shape
     return (hit.view(shape), torch.where(hit, hit_way, victim).view(shape),
-            flat.view(shape))
+            flat)
 
 
 def lookup(tlb: TlbArray, tag: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -72,23 +85,18 @@ def update(tlb: TlbArray, tag: torch.Tensor, way: torch.Tensor, now,
            active: torch.Tensor) -> TlbArray:
     """Touch-or-insert ``tag`` at ``way`` for threads with ``active`` set
     (in place)."""
-    sets = tlb.tags.shape[-2]
-    N = tag.numel()
-    row = torch.arange(0, N * sets, sets, device=tag.device) \
-        + tag.reshape(N) % sets
-    return _write(tlb, row, way, tag, now, active)
+    sets, ways = tlb.tags.shape[-2:]
+    base, _ = _rows_and_ways(tuple(tag.shape), sets, ways, tag.device)
+    return _write(tlb, base + tag % sets, way, tag, now, active)
 
 
 def _write(tlb: TlbArray, row, way, tag, now, active) -> TlbArray:
     """:func:`update` with each thread's set row (from :func:`_probe`)
-    given: one entry per thread, so the writes never collide."""
-    pos = (row * tlb.tags.shape[-1] + way).reshape(-1)
+    given: one entry per thread, so the writes never collide.  ``take`` and
+    ``put_`` read the cache as one flat row, so no view of it is made."""
+    pos = row * tlb.tags.shape[-1] + way      # int64, the flat entry
     for arr, val in ((tlb.tags, tag), (tlb.lru, now)):
-        flat = arr.view(-1)
-        if torch.is_tensor(val):
-            val = val.reshape(-1)
-        flat.index_copy_(0, pos, torch.where(active.reshape(-1), val,
-                                             flat.index_select(0, pos)))
+        arr.put_(pos, torch.where(active, val, arr.take(pos)))
     return tlb
 
 

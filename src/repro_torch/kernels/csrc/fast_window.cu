@@ -72,7 +72,8 @@
 //     load) only when it needs a bit it has not seen, so the four chains
 //     overlap.  A cache of more than 32 ways gives a lane the ways lane,
 //     lane + 32, ..., whose least key it takes before the warp's minimum
-//     (keys are distinct, so one lane owns the least).  Each row records
+//     (keys are distinct, so one lane owns the least); that fold is
+//     compiled into a second instance, launched only for such caches.  Each row records
 //     its hit bits and the entry it wrote;
 //   epilogue, one row per thread: the entries the chunk wrote go back to
 //     global memory, the cost terms come from the four hit bits, the
@@ -304,14 +305,17 @@ __device__ __forceinline__ int set_base(int tag, int sets, int ways,
 }
 
 // Warp C runs cache C (0 L1 dTLB, 1 STLB, 2 PDE, 3 PDPTE) through the
-// chunk's n rows (see Design), one way a lane, and past 32 ways the ways
-// lane + 32, lane + 64, ... too, folded into the lane's key.  The chain of
+// chunk's n rows (see Design), one way a lane.  The kWide instance, which
+// the launcher picks only when a cache has more than 32 ways, also folds
+// the ways lane + 32, lane + 64, ... into the lane's key; the loop, even
+// when it runs no time, costs the latency-bound chain about 13%, so the
+// other instance leaves it out.  The chain of
 // a row is the set's loads, the key, the warp minimum and the owner's
 // store; the next row's tag and set are computed beside it, and a
 // consumer reads its producer's bits only for the store (waiting only
 // when it has caught up).  Each row leaves its record for the epilogue,
 // which writes the touched entries back.
-template <int C>
+template <int C, bool kWide>
 __device__ __forceinline__ void chain(const Params& p, Shared& s,
                                       int32_t* smem, int lane, int n,
                                       int now0) {
@@ -330,11 +334,13 @@ __device__ __forceinline__ void chain(const Params& p, Shared& s,
     unsigned key = UINT_MAX;
     int slot = base + lane;
     if (lane < ways) key = way_key(tags, lru, slot, lane, ways, tag);
-    for (int w = lane + kWarp; w < ways; w += kWarp) {
-      const unsigned kw = way_key(tags, lru, base + w, w, ways, tag);
-      if (kw < key) {
-        key = kw;
-        slot = base + w;
+    if (kWide) {
+      for (int w = lane + kWarp; w < ways; w += kWarp) {
+        const unsigned kw = way_key(tags, lru, base + w, w, ways, tag);
+        if (kw < key) {
+          key = kw;
+          slot = base + w;
+        }
       }
     }
     const int tag_next = s.m[min(r + 1, n - 1)] >> tag_shift;
@@ -367,6 +373,7 @@ __device__ __forceinline__ void chain(const Params& p, Shared& s,
 
 // ---- the kernel -----------------------------------------------------------
 
+template <bool kWide>
 __global__ void __launch_bounds__(kThreads)
     fast_window_kernel(const Params p) {
   extern __shared__ __align__(16) int32_t smem[];
@@ -399,10 +406,10 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     switch (warp) {
-      case 0: chain<0>(p, s, smem, lane, n, p.now0 + r0); break;
-      case 1: chain<1>(p, s, smem, lane, n, p.now0 + r0); break;
-      case 2: chain<2>(p, s, smem, lane, n, p.now0 + r0); break;
-      default: chain<3>(p, s, smem, lane, n, p.now0 + r0); break;
+      case 0: chain<0, kWide>(p, s, smem, lane, n, p.now0 + r0); break;
+      case 1: chain<1, kWide>(p, s, smem, lane, n, p.now0 + r0); break;
+      case 2: chain<2, kWide>(p, s, smem, lane, n, p.now0 + r0); break;
+      default: chain<3, kWide>(p, s, smem, lane, n, p.now0 + r0); break;
     }
     __syncthreads();
 
@@ -532,17 +539,19 @@ extern "C" int fast_window_launch(const uint64_t* ptrs, const long long* ints,
   bool bad = p.L < 0 || p.T < 0 || p.R < 0 || p.K < 1 || p.rb < 0 ||
              p.rb > 15 || p.map_shift < 0 || p.map_shift > 30;
   size_t smem = 0;
+  bool wide = false;
   for (int k = 0; k < 4; ++k) {
     bad |= p.n_node[k] < 1 || p.sets[k] < 1 || p.ways[k] < 1;
+    wide |= p.ways[k] > kWarp;
     smem += 2 * sizeof(int32_t) * (((size_t)p.sets[k] * p.ways[k] + 3) & ~3);
   }
   if (bad || smem > kMaxStagedBytes) return (int)cudaErrorInvalidValue;
+  const auto kernel = wide ? fast_window_kernel<true> : fast_window_kernel<false>;
   if (smem > 32 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        fast_window_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  fast_window_kernel<<<p.L * p.T, kThreads, smem, (cudaStream_t)stream>>>(p);
+  kernel<<<p.L * p.T, kThreads, smem, (cudaStream_t)stream>>>(p);
   return (int)cudaGetLastError();
 }

@@ -25,7 +25,8 @@ FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
 
 
 def test_no_source_imports_jax_or_repro():
-    files = sorted(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py",
+                                          SRC.parent / "chip_ab.py"]
     assert len(files) >= 10
     bad = [str(f) for f in files if FORBIDDEN.search(f.read_text())]
     assert bad == []

@@ -332,3 +332,28 @@ def test_core_exports_the_jax_core_less_the_sweeps():
     not_yet = {"lane_mesh"}
     assert set(tc.__all__) == set(jc.__all__) - not_yet
     assert all(hasattr(tc, name) for name in tc.__all__)
+
+
+@pytest.mark.parametrize("L", [1, 3])
+def test_lane_take_and_add_at_match_jax(L):
+    """``migrate.lane_take`` / ``lane_add_at`` (one lane through the int32
+    index, more through an int64 copy) == the per-lane gather and
+    scatter-add of a vmapped JAX step, repeated indices included."""
+    rng = np.random.default_rng(L)
+    n, T = 50, 8
+    arr = rng.integers(-3, 9, (L, n)).astype(np.int32)
+    idx = rng.integers(0, n, (L, T, 2)).astype(np.int32)
+    idx[:, 1] = idx[:, 0]                       # collisions in each lane
+    vals = rng.integers(0, 4, (L, T, 2)).astype(np.int32)
+    want_take = jax.vmap(lambda a, i: a[i])(jnp.asarray(arr),
+                                            jnp.asarray(idx))
+    want_add = jax.vmap(lambda a, i, v: a.at[i].add(v))(
+        jnp.asarray(arr), jnp.asarray(idx), jnp.asarray(vals))
+    got_take = tmig.lane_take(torch.as_tensor(arr), torch.as_tensor(idx))
+    out = torch.as_tensor(arr.copy())
+    got_add = tmig.lane_add_at(out, torch.as_tensor(idx),
+                               torch.as_tensor(vals))
+    assert got_add is out
+    assert got_take.dtype == torch.int32 and got_take.shape == idx.shape
+    np.testing.assert_array_equal(got_take.numpy(), np.asarray(want_take))
+    np.testing.assert_array_equal(got_add.numpy(), np.asarray(want_add))
