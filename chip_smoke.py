@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's tiered paged-KV server, its paged decode
-attention and its tiered-memory simulator (the time-blocked engine, and
-the per-step engine and the sequential fault path beside it) on one
-NVIDIA GPU.
+attention, its tiered-memory simulator (the time-blocked engine, and the
+per-step engine and the sequential fault path beside it) and the
+simulation service over it on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -72,7 +72,7 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
 9. the quickstart (``repro_torch.quickstart``) on the card at full size
    under the default (blocked) engine: ``benchmark_machine()``, the
    16,384-step ``kv_store`` trace, Linux first-touch (Radiant BHi+Mig runs
-   at full size in [sweep], and solo at [10]'s size), held to the golden
+   at full size in [service] (a), and at [10]'s size in [10]), held to the golden
    file of the JAX package's outputs
    (``src/repro_torch/core/golden/quickstart.json``; the trace's digest
    first, then every summary key and the last and populate-phase rows of
@@ -86,13 +86,6 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    windows at [10]'s size: one populate window and four run-phase windows
    of the blocked engine) device activities per step, the device's idle
    share and the kernels' times per launch;
-[sweep] the quickstart's two policies as one 2-lane sweep at full size
-   (``core.sweep.sweep_runner``, ``sweep_lanes`` run window by window):
-   each lane held to the golden file, the loop under the sync check,
-   ``alloc_scan`` launches == the steps with a fault (one launch for both
-   lanes), ``fast_window`` launches == the plan's fast segments; wall
-   clock and lane-steps/s, populate and run phase apart, beside [9]'s solo
-   run in the same call;
 10. per case, the card's blocked run against its per-step run
    (``debug=True``: every state field bitwise, the timeline's integer keys
    exact, its f32 keys bitwise or else to rtol 1e-6, and which held is
@@ -102,11 +95,36 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    512 run steps: tests/test_core_oracle.py's six policies on
    ``benchmark_machine()``, ``tpp()`` and ``nomad()`` on ``cxl_machine()``;
    then sweeps at that size, each lane bitwise against its solo blocked
-   run: the six policies as one 6-lane sweep, ``tpp()`` and ``nomad()`` as
-   one 2-lane sweep, a 2-trace grid of 4 lanes with a mid-run free and
-   three CostConfigs; a machine of 33 to 64 ways, blocked against
+   run (the loop under the sync check, ``alloc_scan`` launches == the
+   steps where a lane faults, ``fast_window`` launches == the plan's fast
+   segments): the six policies as one 6-lane sweep, ``tpp()`` and
+   ``nomad()`` as one 2-lane sweep, the quickstart's two policies as one
+   2-lane sweep (whole fast windows), then again through ``sweep_lanes``
+   and, BHi+Mig alone, ``TieredMemSimulator`` with a tracing
+   ``Telemetry``, each against the same call without one (the same
+   results bitwise, the same count of synchronising device operations
+   under ``set_sync_debug_mode("warn")``, the window counters == the
+   plan's, a valid trace), a 2-trace grid of 4 lanes with a mid-run free
+   and three CostConfigs; a machine of 33 to 64 ways, blocked against
    per-step; then the sequential fault path against the batched one on a
    small case (footprint 2^10, 64 run steps);
+[service] the simulation service (``repro_torch.service``) on the card,
+   with ``repro_torch.obs.Telemetry`` on: (a) at full size, the
+   quickstart's two policies on its trace as a ``TraceSpec``, each
+   submitted three times, through one ``SimBroker`` flush (one
+   ``sweep_lanes`` call of 2 lanes, one compile of the reference's
+   accounting, 4 in-flight joins), each future held to the golden file,
+   ``alloc_scan`` / ``fast_window`` launches == the steps with a fault /
+   the plan's fast segments; the same queries again answered from the
+   cache with no ``sweep_lanes`` call and no launch; the exported Perfetto
+   trace validated and the snapshot's counters printed; wall clock and
+   queries/s, cold against cached; (b) at [10]'s size, its six policies as
+   queries (mixed priorities, one deadline; two buckets by scan period)
+   and the trace idle-padded to a power of two (a third bucket), each
+   future bitwise against its solo blocked run; then a seeded
+   ``fail_lane`` poisons one lane and bisection isolates it
+   (``PoisonedQueryError``), the other five bitwise against [10]'s solo
+   runs;
 [steady] the steady-state trace of benchmarks/steady_state.py under Linux
    first-touch and BHi+Mig at ``autonuma_period`` 512: the blocked and the
    per-step engine's wall clock and steps/s, the two held equal as in
@@ -629,6 +647,24 @@ class sync_error:
         torch.cuda.set_sync_debug_mode(0)
 
 
+def counted_syncs(fn):
+    """(``fn()``, the synchronising device operations it made: under
+    ``torch.cuda.set_sync_debug_mode("warn")`` each one warns)."""
+    import warnings
+
+    import torch
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum("synchronizing CUDA operation" in str(w.message)
+                    for w in caught)
+
+
 def steps_done(runner) -> int:
     """Steps a runner (blocked or per-step) has run."""
     return getattr(runner, "stepper", runner).s
@@ -722,7 +758,7 @@ def launch_count_phase(replays):
 def quickstart_phase():
     """[9] the quickstart on the card at full size under the default
     (blocked) engine, Linux first-touch alone (BHi+Mig runs at full size
-    in [sweep], beside it, and solo at [10]'s size), held to the golden
+    in [service] (a), beside it, and solo at [10]'s size), held to the golden
     file of the JAX package's outputs; the populate windows and the
     run-phase windows timed apart.  Returns the launches of each kernel,
     per policy (chunks replayed, chunks) of alloc_scan in its timed run
@@ -814,86 +850,202 @@ def quickstart_phase():
     return launches, replays, (t2 - t1, t3 - t2)
 
 
-def sweep_phase(solo_s):
-    """[sweep] the quickstart's two policies (Linux first-touch and Radiant
-    BHi+Mig, both scanning every 512 steps) as one 2-lane sweep at full
-    size (``benchmark_machine()``, the 16,384-step ``kv_store``), through
-    ``core.sweep.sweep_runner`` (``sweep_lanes`` run window by window, so
-    that populate and the run phase are timed apart), the loop under
-    ``set_sync_debug_mode("error")``; each lane held to the golden file;
-    ``alloc_scan`` launches == the union's steps with a fault (one launch
-    for both lanes), ``fast_window`` launches == the plan's fast segments.
-    Prints wall clock and lane-steps/s beside [9]'s solo run
-    (``solo_s``: its populate and run-phase seconds).  Returns the
-    launches."""
-    import torch
-    from repro_torch import quickstart as tq
-    from repro_torch.core import CostConfig, benchmark_machine, fault_step_mask
-    from repro_torch.core.sweep import sweep_runner
-    from repro_torch.kernels import ops
+def service_phase(solo_s, solo10):
+    """[service] the simulation service on the card: ``SimQuery`` ->
+    ``SimBroker.submit`` / ``drain`` -> one ``sweep_lanes`` call per
+    bucket flush -> the lanes' ``BlockedRunner`` and its kernels ->
+    futures and the result cache, with ``Telemetry`` on.
 
+    (a) At full size: the quickstart's two policies on
+    ``benchmark_machine()`` and its 16,384-step ``kv_store`` trace as a
+    ``TraceSpec``, each submitted three times (in-flight joins): one
+    bucket, one flush, one ``sweep_lanes`` call of 2 lanes, one compile of
+    the reference's accounting; each future held to the golden file;
+    ``alloc_scan`` launches == the steps with a fault, ``fast_window``
+    launches == the plan's fast segments (counts set to 0 just before the
+    round and read just after).  A second round of the same queries is
+    answered from the cache: no ``sweep_lanes`` call, no launch.  The
+    exported Perfetto trace passes ``validate_trace_events``; the
+    snapshot's counters are printed; wall clock and queries/s, cold
+    against cached, beside [9]'s solo run (``solo_s``).
+
+    (b) At [10]'s size: the six policies of [10] as queries on [10]'s
+    trace (two buckets: the scan period splits them) with mixed
+    priorities and one deadline, and the trace idle-padded to the next
+    power of two under the first policy (a third bucket, of another
+    shape); each future bitwise against [10]'s solo blocked run of its
+    policy (``solo10``), the padded one against a solo run made here.
+    Then a seeded ``FaultInjector`` poisons one lane of a fresh broker
+    (``fail_lane`` at ``sweep.device``): bisection isolates it, its future
+    fails with ``PoisonedQueryError`` and the other five equal their
+    solo runs.  Returns the launches of (a)'s cold round."""
+    import random
+    import tempfile
+
+    from repro_torch import quickstart as tq
+    from repro_torch.core import (CostConfig, TraceSpec, TieredMemSimulator,
+                                  benchmark_machine, fault_step_mask,
+                                  pad_trace, sim, trace_digest, workloads)
+    from repro_torch.kernels import ops
+    from repro_torch.obs import (FaultInjector, Telemetry, fail_lane,
+                                 validate_trace_events)
+    from repro_torch.service import (PoisonedQueryError, SimBroker,
+                                     SimQuery)
+
+    t_phase = time.perf_counter()
     golden = tq.load_golden()
     mc = benchmark_machine()
-    trace = tq.quickstart_trace(mc)
+    spec = TraceSpec(workload="memcached", footprint=1 << 18, run_steps=4096)
     names, pols = zip(*tq.POLICIES)
-    L, S, p = len(pols), trace.n_steps, trace.populate_steps
+    queries = [SimQuery(trace=spec, policy=pc, machine=mc)
+               for _ in range(3) for pc in pols]
+    tel = Telemetry(tracing=True)
+    broker = SimBroker(max_lanes=64, max_wait=1e9, telemetry=tel)
+    trace = broker.canonical_trace(queries[0])
+    check(trace_digest(trace) == golden["trace"]["digest"],
+          "[service] the spec's trace differs from the golden file's")
     fault_steps = int(fault_step_mask(trace, mc).sum())
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    runner = sweep_runner(mc, [CostConfig()] * L, pols, [trace] * L)
-    torch.cuda.synchronize()
-    t1 = time.perf_counter()
-    pop_windows = -(-p // runner.block)
+    # the flush's plan, made by the engine itself (not through
+    # sweep_runner, which would record the broker's compile signature)
+    segments = sim.BlockedRunner(mc, [CostConfig()] * len(pols), pols,
+                                 [trace] * len(pols)).fast_segments
     ops.reset_launches()
-    with sync_error():
-        runner.advance(pop_windows)
-    torch.cuda.synchronize()
-    t2 = time.perf_counter()
-    with sync_error():
-        runner.advance()
-    torch.cuda.synchronize()
-    t3 = time.perf_counter()
+    t0 = time.perf_counter()
+    futs = broker.submit_many(queries)
+    broker.drain()
+    cold_s = time.perf_counter() - t0
     counts = ops.launch_counts()
-    results = runner.results()
-    t4 = time.perf_counter()
+    st, m = broker.stats, tel.metrics
+    check((st.flushes, st.lanes_run, st.pad_lanes, st.inflight_joins,
+           st.compiles) == (1, 2, 0, 4, 1),
+          f"[service] (a) expected one flush of 2 lanes, no pad, 4 joins, "
+          f"one compile: {st}")
+    check(m.value("sweep.calls", engine="blocked") == 1
+          and m.value("sweep.lanes", engine="blocked") == 2,
+          "[service] (a) expected one sweep_lanes call of 2 lanes")
     check(counts["alloc_scan"] == fault_steps,
-          f"[sweep] alloc_scan launches {counts['alloc_scan']} != "
-          f"{fault_steps} steps with a fault (one launch for both lanes)")
-    check(counts["fast_window"] == runner.fast_segments > 0,
-          f"[sweep] fast_window launches {counts['fast_window']} != "
-          f"{runner.fast_segments} fast segments of the plan")
+          f"[service] (a) alloc_scan launches {counts['alloc_scan']} != "
+          f"{fault_steps} steps with a fault")
+    check(counts["fast_window"] == segments > 0,
+          f"[service] (a) fast_window launches {counts['fast_window']} != "
+          f"{segments} fast segments of the plan")
     base = None
-    for name, pc, res in zip(names, pols, results):
-        bad = tq.mismatches({"label": pc.label(), **tq.outputs(res, trace)},
+    for i, (q, f) in enumerate(zip(queries, futs)):
+        name = names[i % len(pols)]
+        res = f.result()
+        check(res is futs[i % len(pols)].result(),
+              f"[service] (a) query {i}: not joined onto its lane")
+        bad = tq.mismatches({"label": q.policy.label(),
+                             **tq.outputs(res, trace)},
                             golden["policies"][name])
-        check(not bad, f"[sweep] lane {name}: differs from the golden file: "
-              f"{bad[:8]}")
-        if base is None:
-            base = tq.run_phase(res, trace)[0]
-        log(f"[sweep] lane {tq.report_line(name.strip(), res, trace, base)}")
-    n_pop = min(pop_windows * runner.block, S)
-    pop_s, run_s = t2 - t1, t3 - t2
+        check(not bad, f"[service] (a) {name}: differs from the golden "
+              f"file: {bad[:8]}")
+        if i < len(pols):
+            if base is None:
+                base = tq.run_phase(res, trace)[0]
+            log(f"[service] (a) {tq.report_line(name.strip(), res, trace, base)}")
+
+    ops.reset_launches()
+    t0 = time.perf_counter()
+    futs2 = broker.submit_many(queries)
+    broker.drain()
+    cached_s = time.perf_counter() - t0
+    counts2 = ops.launch_counts()
+    check(all(f.from_cache and f.result() is g.result()
+              for f, g in zip(futs2, futs)),
+          "[service] (a) second round not answered from the cache")
+    check(m.value("sweep.calls", engine="blocked") == 1
+          and broker.stats.flushes == 1 and not any(counts2.values()),
+          f"[service] (a) the cached round ran work: {counts2}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = Path(tmp) / "service_trace.json"
+        check(tel.export_trace(path), "[service] (a) no trace exported")
+        obj = json.loads(path.read_text())
+    problems = validate_trace_events(obj)
+    check(not problems, f"[service] (a) trace: {problems[:5]}")
+    spans = [e["name"] for e in obj["traceEvents"] if e.get("ph") == "X"]
+    counters = {k: v for k, v in tel.snapshot()["metrics"].items()
+                if not isinstance(v, dict)}
+    hists = {k: (v["count"], round(v.get("sum", 0.0), 4))
+             for k, v in tel.snapshot()["metrics"].items()
+             if isinstance(v, dict)}
+    n = len(queries)
     solo_pop, solo_run = solo_s
-    log(f"[sweep] 2-lane sweep of the quickstart ({', '.join(n.strip() for n in names)}; "
-        f"{S} steps, {fault_steps} with a fault): each lane == golden file "
-        f"(every summary key and the last and populate rows of every "
-        f"timeline key); launches {counts} ({runner.fast_segments} fast "
-        f"segments of the plan); under set_sync_debug_mode('error'): "
-        f"populate {pop_s:.2f} s ({L * n_pop / pop_s:.1f} lane-steps/s), "
-        f"run phase {run_s:.3f} s ({L * (S - n_pop) / run_s:.1f} "
-        f"lane-steps/s), whole {pop_s + run_s:.2f} s "
-        f"({L * S / (pop_s + run_s):.1f} lane-steps/s); set-up "
-        f"{t1 - t0:.2f} s, results {t4 - t3:.2f} s; host time by segment "
-        f"kind {dict((k, round(v, 4)) for k, v in runner.host_s.items())}")
-    log(f"[sweep] against [9]'s solo Linux run in this call (populate "
-        f"{solo_pop:.2f} s, run phase {solo_run:.3f} s, "
-        f"{S / (solo_pop + solo_run):.1f} steps/s): the sweep takes "
-        f"{(pop_s + run_s) / (solo_pop + solo_run):.3f}x its wall clock "
-        f"(populate {pop_s / solo_pop:.3f}x, run phase "
-        f"{run_s / solo_run:.3f}x) for {L} lanes, "
-        f"{L * S / (pop_s + run_s) / (S / (solo_pop + solo_run)):.3f}x its "
-        f"steps/s in lane-steps/s")
-    return counts
+    log(f"[service] (a) {n} queries ({len(pols)} policies x 3) at full size "
+        f"through one flush of {st.lanes_run} lanes: each future == golden "
+        f"file; launches {counts} ({segments} fast segments of the plan); "
+        f"cold round {cold_s:.2f} s ({n / cold_s:.4f} queries/s, "
+        f"{cold_s / (solo_pop + solo_run):.3f}x [9]'s solo Linux run's "
+        f"{solo_pop + solo_run:.2f} s), cached round {cached_s * 1e3:.3f} ms "
+        f"({n / cached_s:.1f} queries/s), launches {counts2}; trace "
+        f"{len(obj['traceEvents'])} events, {len(spans)} spans, valid")
+    log(f"[service] (a) counters {json.dumps(counters, sort_keys=True)}")
+    log(f"[service] (a) histograms (count, sum s) "
+        f"{json.dumps(hists, sort_keys=True)}")
+    launches = counts
+
+    # (b) [10]'s size: two buckets by scan period, a third by shape
+    cases = sim_cases()[:len(ORACLE_POLICIES)]
+    mc = cases[0][1]
+    trace = workloads.kv_store(mc, **REDUCED)
+    padded = pad_trace(trace, sim.pow2ceil(trace.n_steps))
+    check(padded.n_steps > trace.n_steps, "[service] (b) nothing to pad")
+    qs = [SimQuery(trace=trace, policy=pc, machine=mc, priority=i % 3,
+                   deadline=(time.monotonic() + 3600.0 if i == 3 else None))
+          for i, (_, _, pc) in enumerate(cases)]
+    q_pad = SimQuery(trace=padded, policy=cases[0][2], machine=mc,
+                     priority=1)
+    b = SimBroker(max_lanes=64, max_wait=1e9)
+    t0 = time.perf_counter()
+    futs = b.submit_many(qs + [q_pad])
+    b.drain()
+    burst_s = time.perf_counter() - t0
+    pad_solo, _, pad_s = timed_run(TieredMemSimulator(mc=mc, pc=cases[0][2]),
+                                   padded)
+    lanes_bitwise([f.result() for f in futs], solo10[:len(qs)] + [pad_solo],
+                  "[service] (b)")
+    check((b.stats.flushes, b.stats.lanes_run) == (3, len(qs) + 1),
+          f"[service] (b) expected 3 flushes of {len(qs) + 1} lanes: "
+          f"{b.stats}")
+    log(f"[service] (b) {len(qs) + 1} queries at [10]'s size ({trace.n_steps}"
+        f" steps; the padded one {padded.n_steps}): 3 buckets (scan period "
+        f"0 and 16, and the padded shape), each future == its solo blocked "
+        f"run bitwise ([10]'s, and one made here for the padded trace in "
+        f"{pad_s:.2f} s); {b.stats.flushes} flushes, {b.stats.lanes_run} "
+        f"lanes, {b.stats.pad_lanes} pad lanes, {b.stats.compiles} "
+        f"compiles; {burst_s:.2f} s ({len(futs) / burst_s:.3f} queries/s)")
+
+    rng = random.Random(22)
+    bad_i = rng.choice([i for i, q in enumerate(qs) if q.policy.autonuma])
+    digest = b.query_digest(qs[bad_i])
+    tel_b = Telemetry()
+    b2 = SimBroker(max_lanes=64, max_wait=1e9, telemetry=tel_b,
+                   injector=FaultInjector([fail_lane("sweep.device", digest)]),
+                   sleep=lambda s: None)
+    t0 = time.perf_counter()
+    futs = b2.submit_many(qs)
+    b2.drain()
+    bisect_s = time.perf_counter() - t0
+    try:
+        futs[bad_i].result()
+        check(False, "[service] (b) the poisoned lane resolved")
+    except PoisonedQueryError as exc:
+        check(exc.digest == digest, f"[service] (b) poisoned {exc.digest}, "
+              f"not {digest}")
+    good = [i for i in range(len(qs)) if i != bad_i]
+    lanes_bitwise([futs[i].result() for i in good], [solo10[i] for i in good],
+                  "[service] (b) bisection")
+    check(b2.stats.quarantined == 1 and b2.quarantine.digests() == [digest],
+          f"[service] (b) quarantine {b2.quarantine.digests()}")
+    log(f"[service] (b) fail_lane at sweep.device on query {bad_i} "
+        f"({qs[bad_i].policy.label()}, seed 22): PoisonedQueryError with "
+        f"its digest {digest}, the other {len(good)} == their solo runs "
+        f"bitwise; {tel_b.metrics.value('broker.bisect_runs')} bisection "
+        f"runs, {b2.stats.lanes_run} lanes run, {b2.stats.pad_lanes} pad "
+        f"lanes, injected {b2.injector.stats()['injected']}; "
+        f"{bisect_s:.2f} s")
+    log(f"[service] total {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def cpu_route_worker(case: int, out: str) -> int:
@@ -1060,7 +1212,7 @@ def cpu_route_phase(width=6):
         f"faults): state bitwise, timeline f32 keys {how}; sequential "
         f"{seq_s:.2f} s, batched {batched_s:.2f} s")
     log(f"[10] total {time.perf_counter() - t0:.1f} s")
-    return held
+    return held, solo
 
 
 def lanes_bitwise(got, want, what):
@@ -1108,15 +1260,104 @@ def timed_sweep(mc, ccs, pols, traces, what):
     return runner.results(), seconds, counts, runner.plan.counts
 
 
+def quickstart_lanes():
+    """[10] the quickstart's two policies (Linux first-touch and Radiant
+    BHi+Mig: a scan every 512 steps, so whole fast windows, which [10]'s
+    policies, scanning every 16 steps, never run in a sweep) at [10]'s
+    size: one 2-lane sweep, each lane bitwise against its solo blocked run
+    made here.  Then telemetry on the card: ``sweep_lanes`` and one
+    ``TieredMemSimulator`` run (BHi+Mig) with a tracing ``Telemetry``,
+    each against the same call without one: the same results bit for bit
+    and the same number of synchronising device operations
+    (``counted_syncs``: telemetry adds no device read), the window
+    counters equal to the plan's counts, one ``window.*`` span per window
+    and the trace valid."""
+    from repro_torch import quickstart as tq
+    from repro_torch.core import (CostConfig, TieredMemSimulator,
+                                  benchmark_machine, sweep_lanes, workloads)
+    from repro_torch.obs import Telemetry, validate_trace_events
+
+    mc = benchmark_machine()
+    trace = workloads.kv_store(mc, **REDUCED)
+    names, pols = zip(*tq.POLICIES)
+    pols, L, S = list(pols), len(pols), trace.n_steps
+    what = "[10] 2-lane sweep of the quickstart's policies"
+    solos = [timed_run(TieredMemSimulator(mc=mc, pc=pc), trace)
+             for pc in pols]
+    want = [r for r, _, _ in solos]
+    lanes, sec, counts, plan = timed_sweep(mc, [CostConfig()] * L, pols,
+                                           [trace] * L, what)
+    check(counts["fast_window"] > 0, f"{what}: no fast segment")
+    lanes_bitwise(lanes, want, what)
+    solo_s = [t for _, _, t in solos]
+    log(f"{what} ({', '.join(n.strip() for n in names)}; {S} steps): each "
+        f"lane == its solo blocked run bitwise (every state field and "
+        f"timeline key); windows {plan}, launches {counts}; {sec:.3f} s "
+        f"({L * S / sec:.1f} lane-steps/s) against the solo runs' "
+        f"{solo_s[0]:.3f} / {solo_s[1]:.3f} s")
+
+    def with_telemetry(run, label):
+        """(result on, result off, syncs on, syncs off, the Telemetry)."""
+        off, n_off = counted_syncs(lambda: run(None))
+        tel = Telemetry(tracing=True)
+        on, n_on = counted_syncs(lambda: run(tel))
+        check(n_on == n_off > 0, f"{label}: {n_on} synchronising operations "
+              f"with telemetry, {n_off} without")
+        problems = validate_trace_events(tel.tracer.to_trace_json())
+        check(not problems, f"{label}: trace {problems[:5]}")
+        return on, off, n_on, tel
+
+    def windows_recorded(tel, prefix, label):
+        m, names = tel.metrics, tel.tracer.span_names()
+        got = [m.value(f"{prefix}.windows_{k}")
+               for k in ("fast", "event", "hoist", "split")]
+        n_fast, _, n_hoist, n_split = plan
+        check((got[0], got[2], got[3]) == (n_fast, n_hoist, n_split)
+              and sum(n.startswith("window.") for n in names)
+              == got[0] + got[1] > 0,
+              f"{label}: windows recorded {got}, the plan's {plan}")
+        return got
+
+    args = (mc, [CostConfig()] * L, pols, [trace] * L)
+    label = f"{what}, sweep_lanes"
+    on, off, n_sweep, tel = with_telemetry(
+        lambda t: sweep_lanes(*args, telemetry=t), label)
+    lanes_bitwise(off + on, want + want, label)
+    m = tel.metrics
+    check(m.value("sweep.calls", engine="blocked") == 1
+          and m.value("sweep.lanes", engine="blocked") == L
+          and tel.tracer.span_names().count("sweep.device") == 1,
+          f"{label}: sweep counters {tel.metrics.snapshot()}")
+    sweep_windows = windows_recorded(tel, "sweep", label)
+
+    label = f"{what}, TieredMemSimulator ({names[1].strip()})"
+    on, off, n_sim, tel = with_telemetry(
+        lambda t: TieredMemSimulator(mc=mc, pc=pols[1],
+                                     telemetry=t).run(trace), label)
+    lanes_bitwise([off, on], [want[1], want[1]], label)
+    check(tel.metrics.value("sim.runs", engine="blocked") == 1
+          and tel.tracer.span_names().count("sim.run") == 1,
+          f"{label}: sim counters {tel.metrics.snapshot()}")
+    windows_recorded(tel, "sim", label)
+    log(f"{what}: with a tracing Telemetry, sweep_lanes and "
+        f"TieredMemSimulator.run give the same results bitwise and make the "
+        f"same synchronising device operations as without one ({n_sweep} "
+        f"and {n_sim}: the results' reads to the host); windows recorded "
+        f"(fast, event, hoist, split) {sweep_windows} == the plan's, one "
+        f"window span each, traces valid")
+
+
 def sweep_cases(cases, solo):
     """[10]'s sweeps on the card, at [10]'s size, each lane bitwise against
     the solo blocked run of its case: one 6-lane sweep of the six
     ``benchmark_machine()`` policies, one 2-lane sweep of ``tpp()`` and
     ``nomad()`` on ``cxl_machine()`` (``solo`` holds [10]'s solo runs, in
-    ``cases`` order); a 2-trace grid of 4 lanes with a mid-run free in one
-    trace and three CostConfigs (against 4 solo runs made here); then a
-    machine of 33 to 64 ways (``WIDE_CACHES``), blocked against per-step.
-    Returns how its f32 timeline keys held (``engines_agree``)."""
+    ``cases`` order); the quickstart's two policies, with telemetry
+    (``quickstart_lanes``); a 2-trace grid of 4 lanes with a mid-run free
+    in one trace and three CostConfigs (against 4 solo runs made here);
+    then a machine of 33 to 64 ways (``WIDE_CACHES``), blocked against
+    per-step.  Returns how its f32 timeline keys held
+    (``engines_agree``)."""
     import numpy as np
     from repro_torch.core import (CostConfig, PolicyConfig, TieredMemSimulator,
                                   benchmark_machine, bhi_mig, workloads)
@@ -1133,6 +1374,7 @@ def sweep_cases(cases, solo):
         log(f"{what}: each lane == its solo blocked run bitwise (every state "
             f"field and timeline key); windows {plan}, launches {counts}; "
             f"{sec:.2f} s for {len(pols)} lanes")
+    quickstart_lanes()
 
     mc = benchmark_machine()
     a = workloads.kv_store(mc, **REDUCED, name="a")
@@ -1838,13 +2080,15 @@ def main() -> int:
     err["fast_window"], window_t = fast_window_phase(dev)
     sim_launches, replays, solo_s = quickstart_phase()
     log(f"[9] total wall {time.perf_counter() - t_start:.1f} s")
-    swept = sweep_phase(solo_s)
-    log(f"[sweep] total wall {time.perf_counter() - t_start:.1f} s")
-    # the simulator's main paths: [9]'s solo run and [sweep]'s lanes
-    launches.update({k: sim_launches[k] + swept[k] for k in sim_launches})
-    held = cpu_route_phase()
+    held, solo10 = cpu_route_phase()
     log(f"[10] blocked vs per-step f32 timeline keys: {held.count('bitwise')} "
         f"of {len(held)} cases bitwise, the rest to rtol 1e-6")
+    served = service_phase(solo_s, solo10)
+    log(f"[service] total wall {time.perf_counter() - t_start:.1f} s")
+    # the simulator's main paths: [9]'s solo run and
+    # [service] (a)'s broker flush
+    launches.update({k: sim_launches[k] + served[k]
+                     for k in sim_launches})
     steady_state_phase()
     log(f"[steady] total wall {time.perf_counter() - t_start:.1f} s")
     launch_count_phase(replays)

@@ -67,6 +67,7 @@ from .migrate import lane_add_at, lane_lat, lane_take
 from .state import SimState, init_state, is_dram
 from ..device import resolve_device
 from ..kernels import ops
+from ..obs import or_null
 
 I32 = torch.int32
 F32 = torch.float32
@@ -1415,7 +1416,16 @@ class TieredMemSimulator:
     ``phase_b="batched"`` (default) is the conflict-aware vectorized fault
     path, ``"sequential"`` the per-thread loop it is tested against.  The
     per-step engine and the sequential path are differential oracles and
-    need ``debug=True``, as in the reference.  There is no ``telemetry``.
+    need ``debug=True``, as in the reference.
+
+    ``telemetry`` (optional :class:`repro_torch.obs.Telemetry`) records the
+    reference's run counters (``sim.runs``, ``sim.windows_*`` or
+    ``sim.steps``) and, when tracing, a ``sim.run`` span and one
+    ``window.fast`` / ``window.event`` span per window, the run's time
+    from its first window to its result on the host spread uniformly over
+    the windows, as the reference spreads its compiled scan's.  Every
+    hook is host-side and reads no device value: the results, and the
+    device work, are the same with telemetry on or off.
     ``device`` (``None``: the CUDA device) is where the run's state lives
     and its steps run.
     """
@@ -1427,6 +1437,7 @@ class TieredMemSimulator:
                  engine: str = "blocked",
                  block: int = DEFAULT_BLOCK,
                  debug: bool = False,
+                 telemetry=None,
                  device=None):
         check_engine(engine, phase_b, debug)
         self.mc, self.cc, self.pc = mc, cc, pc
@@ -1434,6 +1445,7 @@ class TieredMemSimulator:
         self.engine = engine
         self.block = int(block)
         self.debug = bool(debug)
+        self.telemetry = or_null(telemetry)
         self.device = resolve_device(device)
 
     def runner(self, trace: Trace, state: Optional[SimState] = None):
@@ -1448,7 +1460,53 @@ class TieredMemSimulator:
         return Stepper(*lanes, **kw)
 
     def run(self, trace: Trace, state: Optional[SimState] = None) -> RunResult:
-        return self.runner(trace, state).advance().result()
+        tel = self.telemetry
+        run_t0 = tel.now()
+        runner = self.runner(trace, state)
+        if self.engine == "blocked":
+            plan = runner.plan
+            if tel.enabled:
+                window_counters(tel, "sim", plan)
+            dev_t0 = tel.now()
+            res = runner.advance().result()
+            if dev_t0 is not None:
+                window_spans(tel, plan, dev_t0, tel.now())
+        else:
+            if tel.enabled:
+                tel.counter("sim.steps").inc(trace.n_steps)
+            res = runner.advance().result()
+        if tel.enabled:
+            tel.counter("sim.runs", engine=self.engine).inc()
+            if run_t0 is not None:
+                tel.add_span("sim.run", run_t0, tel.now(), cat="engine",
+                             args={"steps": trace.n_steps,
+                                   "engine": self.engine,
+                                   "trace": trace.name})
+        return res
+
+
+def window_counters(tel, prefix: str, plan: WindowPlan) -> None:
+    """The reference's window classification counters of ``plan``:
+    ``<prefix>.windows_event`` (every window but the fast ones),
+    ``_fast``, ``_hoist`` and ``_split``."""
+    n_fast, _, n_hoist, n_split = plan.counts
+    tel.counter(f"{prefix}.windows_event").inc(plan.n_windows - n_fast)
+    tel.counter(f"{prefix}.windows_fast").inc(n_fast)
+    tel.counter(f"{prefix}.windows_hoist").inc(n_hoist)
+    tel.counter(f"{prefix}.windows_split").inc(n_split)
+
+
+def window_spans(tel, plan: WindowPlan, t0: float, t1: float) -> None:
+    """One ``window.fast`` / ``window.event`` span per window of ``plan``
+    on the engine's track (tid 1), ``t0..t1`` (the time from the first
+    window's start to the results on the host) spread uniformly over the
+    windows, as the reference spreads its compiled scan's; the
+    classification is the plan's (branch 0 is the fast window)."""
+    w_dur = (t1 - t0) / max(plan.n_windows, 1)
+    for i, k in enumerate(plan.kind):
+        tel.add_span("window.event" if k else "window.fast",
+                     t0 + i * w_dur, t0 + (i + 1) * w_dur, cat="engine",
+                     tid=1, args={"window": i})
 
 
 def check_engine(engine: str, phase_b: str, debug: bool) -> None:

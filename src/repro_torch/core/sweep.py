@@ -39,15 +39,30 @@ candidate bound is the largest ``autonuma_budget`` of the lanes (or the
 gates through masks; the allocator's conflict-group bound (``group``)
 is the power of two of the lanes' most winners in a step, overridable
 upward.  One device: ``lane_sharding`` must be ``None``, and there is no
-``lane_mesh``.  There is no ``telemetry``, as the facade has none.
+``lane_mesh``.
+
+``telemetry`` (optional :class:`repro_torch.obs.Telemetry`) records the
+reference's counters and spans: ``sweep.calls`` / ``sweep.lanes`` per
+engine, the window classification (``sweep.windows_*``, or
+``sweep.steps`` for the per-step engine) and a ``sweep.prepare`` span
+when the lanes' engine is made (:func:`sweep_runner`); the
+``sweep.device_seconds`` histogram and, when tracing, a ``sweep.device``
+span from the first window's start to the lanes' results on the host
+with one ``window.fast`` / ``window.event`` span per window, the time
+spread uniformly over the windows (:func:`sweep_lanes`).  The hooks are
+host-side and read no device value; the results' own read to the host
+is the one wait the span closes on.
 """
 from __future__ import annotations
 
+import time
 from typing import List, Optional, Sequence, Union
 
+from ..obs import or_null
 from .config import CostConfig, MachineConfig, PolicyConfig
 from .sim import (DEFAULT_BLOCK, BlockedRunner, RunResult, Stepper, Trace,
-                  _normalize_blocked, check_engine, pow2ceil, stack_leaves)
+                  _normalize_blocked, check_engine, pow2ceil, stack_leaves,
+                  window_counters, window_spans)
 
 # The reference compiles one program per distinct signature; this set
 # holds the signatures its sweeps would have compiled (see compile_count).
@@ -91,6 +106,7 @@ def sweep_lanes(mc: MachineConfig,
                 block: int = DEFAULT_BLOCK,
                 group: Optional[int] = None,
                 debug: bool = False,
+                telemetry=None,
                 device=None,
                 ) -> List[RunResult]:
     """Run L independent (cost, policy, trace) lanes as one batched run.
@@ -102,13 +118,28 @@ def sweep_lanes(mc: MachineConfig,
     above the lanes' own; neither changes a result.  ``engine`` / ``block``
     select the stepper (see ``core.sim``); the per-step engine and the
     sequential fault path need ``debug=True``.  ``lane_sharding`` must be
-    ``None`` (one device).  ``device`` (``None``: the CUDA device) holds
-    the lanes' state.
+    ``None`` (one device).  ``telemetry``: see the module's docstring.
+    ``device`` (``None``: the CUDA device) holds the lanes' state.
     """
-    return sweep_runner(mc, ccs, policies, traces, phase_b=phase_b,
-                        budget=budget, lane_sharding=lane_sharding,
-                        engine=engine, block=block, group=group, debug=debug,
-                        device=device).advance().results()
+    tel = or_null(telemetry)
+    runner = sweep_runner(mc, ccs, policies, traces, phase_b=phase_b,
+                          budget=budget, lane_sharding=lane_sharding,
+                          engine=engine, block=block, group=group,
+                          debug=debug, telemetry=tel, device=device)
+    dev_t0 = tel.now()
+    wall_t0 = time.perf_counter()
+    results = runner.advance().results()
+    if tel.enabled:
+        tel.histogram("sweep.device_seconds").observe(
+            time.perf_counter() - wall_t0)
+    if dev_t0 is not None:
+        dev_t1 = tel.now()
+        tel.add_span("sweep.device", dev_t0, dev_t1, cat="engine",
+                     args={"lanes": len(results), "steps": traces[0].n_steps,
+                           "engine": engine})
+        if engine == "blocked":
+            window_spans(tel, runner.plan, dev_t0, dev_t1)
+    return results
 
 
 def sweep_runner(mc: MachineConfig,
@@ -122,12 +153,16 @@ def sweep_runner(mc: MachineConfig,
                  block: int = DEFAULT_BLOCK,
                  group: Optional[int] = None,
                  debug: bool = False,
+                 telemetry=None,
                  device=None):
     """:func:`sweep_lanes` as a run in progress, as
     ``TieredMemSimulator.runner`` is a run's: the arguments checked, the
     lanes' engine made (a ``sim.BlockedRunner``, or a ``sim.Stepper`` for
     ``engine="per_step"``), nothing run yet; ``advance`` runs windows (or
-    steps), ``results`` gives a RunResult per lane."""
+    steps), ``results`` gives a RunResult per lane.  ``telemetry`` gets
+    the call's counters and its ``sweep.prepare`` span here."""
+    tel = or_null(telemetry)
+    prep_t0 = tel.now()
     check_engine(engine, phase_b, debug)
     if lane_sharding is not None:
         raise ValueError(f"lane_sharding must be None: the port runs its "
@@ -149,6 +184,17 @@ def sweep_runner(mc: MachineConfig,
     if engine == "blocked":
         sig = _normalize_blocked(*sig, geom)
     _SIGNATURES.add((mc, *sig, engine, eff_block, geom, stp.L, program))
+    if tel.enabled:
+        tel.counter("sweep.calls", engine=engine).inc()
+        tel.counter("sweep.lanes", engine=engine).inc(stp.L)
+        if engine == "blocked":
+            window_counters(tel, "sweep", runner.plan)
+        else:
+            tel.counter("sweep.steps").inc(stp.n_steps)
+        if prep_t0 is not None:
+            tel.add_span("sweep.prepare", prep_t0, tel.now(), cat="engine",
+                         args={"lanes": stp.L, "steps": stp.n_steps,
+                               "engine": engine})
     return runner
 
 
@@ -162,6 +208,7 @@ def sweep(mc: MachineConfig,
           engine: str = "blocked",
           block: int = DEFAULT_BLOCK,
           debug: bool = False,
+          telemetry=None,
           device=None,
           ) -> Union[List[RunResult], List[List[RunResult]]]:
     """Run every (trace, policy) pair as lanes of one batched run.
@@ -189,6 +236,7 @@ def sweep(mc: MachineConfig,
         [p for _ in range(M) for p in policies],
         [tr for tr in tr_list for _ in range(P_)],
         phase_b=phase_b, budget=budget, lane_sharding=lane_sharding,
-        engine=engine, block=block, debug=debug, device=device)
+        engine=engine, block=block, debug=debug, telemetry=telemetry,
+        device=device)
     results = [flat[j * P_:(j + 1) * P_] for j in range(M)]
     return results[0] if single else results

@@ -10,8 +10,16 @@ import torch
 
 SRC = pathlib.Path(__file__).resolve().parents[1] / "src"
 PORT = SRC / "repro_torch"
-CORE = sorted(f"repro_torch.core.{f.stem}" for f in (PORT / "core").glob("*.py")
-              if f.stem != "__init__")
+
+
+def submodules(pkg):
+    return sorted(f"repro_torch.{pkg}.{f.stem}"
+                  for f in (PORT / pkg).glob("*.py") if f.stem != "__init__")
+
+
+CORE = submodules("core")
+OBS = submodules("obs")
+SERVICE = submodules("service")
 MODULES = ["repro_torch", "repro_torch.kernels.ops", "repro_torch.kernels.build",
            "repro_torch.kernels.paged_attention",
            "repro_torch.kernels.alloc_scan", "repro_torch.kernels.fast_window",
@@ -19,7 +27,8 @@ MODULES = ["repro_torch", "repro_torch.kernels.ops", "repro_torch.kernels.build"
            "repro_torch.memsys.tiered_kv", "repro_torch.serving.engine",
            "repro_torch.serving.serve_tiered", "repro_torch.configs",
            "repro_torch.configs.qwen2_5_14b", "repro_torch.core",
-           "repro_torch.quickstart"] + CORE
+           "repro_torch.quickstart", "repro_torch.obs",
+           "repro_torch.service"] + CORE + OBS + SERVICE
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                        re.MULTILINE)
 
@@ -37,6 +46,26 @@ def test_simulator_modules_are_all_checked():
                     "repro_torch.core.migrate", "repro_torch.core.sim",
                     "repro_torch.core.state", "repro_torch.core.sweep",
                     "repro_torch.core.tlbs", "repro_torch.core.workloads"]
+
+
+def test_service_and_obs_modules_are_all_checked():
+    """Every module of the reference's ``obs`` and ``service`` has its
+    twin, and the import check covers each."""
+    ref = SRC / "repro"
+    for pkg, mods in (("obs", OBS), ("service", SERVICE)):
+        want = sorted(f"repro_torch.{pkg}.{f.stem}"
+                      for f in (ref / pkg).glob("*.py") if f.stem != "__init__")
+        assert mods == want
+        assert set(mods) <= set(MODULES)
+    assert OBS == ["repro_torch.obs.bench", "repro_torch.obs.inject",
+                   "repro_torch.obs.metrics", "repro_torch.obs.report",
+                   "repro_torch.obs.telemetry", "repro_torch.obs.tracing",
+                   "repro_torch.obs.validate"]
+    assert SERVICE == ["repro_torch.service.broker",
+                       "repro_torch.service.cache",
+                       "repro_torch.service.query",
+                       "repro_torch.service.resilience",
+                       "repro_torch.service.search"]
 
 
 def test_import_leaves_jax_out():
@@ -65,7 +94,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         core.TieredMemSimulator(mc=mc).run(trace)
     with pytest.raises(RuntimeError, match="is_available"):
         core.init_state(mc)
+    from repro_torch.service import SimBroker
+    with pytest.raises(RuntimeError, match="is_available"):
+        SimBroker()
+    with pytest.raises(RuntimeError, match="is_available"):
+        SimBroker(device=None)
     # the CPU is there when asked for
     assert core.TieredMemSimulator(mc=mc, device="cpu").run(trace) \
         .summary()["faults"] > 0
     assert core.init_state(mc, device="cpu").data_node.device.type == "cpu"
+    assert SimBroker(device="cpu").device.type == "cpu"
