@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's tiered paged-KV server, its paged decode
-attention, its tiered-memory simulator (the time-blocked engine, and the
-per-step engine and the sequential fault path beside it) and the
-simulation service over it on one NVIDIA GPU.
+attention, its model stack's serving path, its tiered-memory simulator
+(the time-blocked engine, and the per-step engine and the sequential
+fault path beside it) and the simulation service over it on one NVIDIA
+GPU.
 
 Run from the repository root with no arguments:
 
@@ -132,6 +133,26 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    populate windows run first, unprofiled) device activities per step,
    the device's idle share and ``fast_window``'s device time per launch
    beside an empty kernel and its bytes bound;
+[model] the model stack's serving path (``repro_torch.models``, no kernel
+   of the port on it), in a process of its own (``--model-worker``,
+   waited for), so that no profiling of another phase slows its
+   timing and its own does not slow another's: (a) each of the ten archs at
+   ``configs.reduced()``, f32 and bf16, on the card against the CPU route
+   on the same seeded params: ``lm_loss``, prefill logits and one decode
+   step (hubert: forward and loss), and rwkv in f32 once more with its
+   time-mix steps kept in f32, held to the f32 tolerance of the rest;
+   (b) Qwen1.5-0.5B at full width (24 layers, d_model 1024, 16/16 heads,
+   d_ff 2816, vocab 151,936, tied, QKV bias, bf16, seeded params):
+   prefill of 8 x 512 tokens, 64 greedy decode steps with the tokens on
+   the card and the loop under the sync check (no launch of the port's
+   kernels), decode against ``forward`` at every position of a
+   teacher-forced 2 x 64 prompt, card against CPU in f32 on a 2 x 32
+   prompt and 4 decode steps (and the card again with TF32 products,
+   which must fail that tolerance), each tolerance printed beside its
+   measured maximum; (c) prefill and decode tokens/s, host ms a decode
+   step, device activities a step and the device's idle share over 8
+   profiled decode steps, beside the step's byte bound (the weights once,
+   the K and V it reads, its logits);
 11. print the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -670,6 +691,28 @@ def steps_done(runner) -> int:
     return getattr(runner, "stepper", runner).s
 
 
+def device_events(prof):
+    """The device activities (kernels, copies, fills) a profile recorded;
+    fails if there are none."""
+    from torch.autograd import DeviceType
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    check(len(events) > 0, "the profiler recorded no device activity")
+    return events
+
+
+def idle_share(events) -> float:
+    """The part of the span from the first device activity to the last
+    that no activity covers."""
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy, lo = busy + hi - lo, a
+        hi = max(hi, b)
+    busy += hi - lo
+    return 1 - busy / (max(b for _, b in spans) - spans[0][0])
+
+
 def profiled_window(runner, k):
     """Over the runner's next ``k`` windows (blocked) or steps (per-step),
     from the profiler: device activities (kernels, copies, fills) per
@@ -679,7 +722,6 @@ def profiled_window(runner, k):
     profiler may drop an event) and the mean ms of the launches that the
     profiler recorded, and how many it recorded (``<name>_recorded``)."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.kernels import ops
@@ -691,17 +733,9 @@ def profiled_window(runner, k):
         torch.cuda.synchronize()
     launched = ops.launch_counts()
     steps = steps_done(runner) - s0
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    check(len(events) > 0, "the profiler recorded no device activity")
-    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
-    busy, (lo, hi) = 0.0, spans[0]
-    for a, b in spans[1:]:
-        if a > hi:
-            busy, lo = busy + hi - lo, a
-        hi = max(hi, b)
-    busy += hi - lo
-    span = max(b for _, b in spans) - spans[0][0]
-    out = dict(steps=steps, per_step=len(events) / steps, idle=1 - busy / span)
+    events = device_events(prof)
+    out = dict(steps=steps, per_step=len(events) / steps,
+               idle=idle_share(events))
     for name in ("alloc_scan", "fast_window"):
         t = [e.time_range.elapsed_us() for e in events if name in e.name]
         out[name] = (launched[name], sum(t) / len(t) / 1e3 if t else 0.0)
@@ -1055,6 +1089,21 @@ def cpu_route_worker(case: int, out: str) -> int:
     result = cpu_route_run(case, REDUCED)
     with open(out, "wb") as f:
         pickle.dump(result, f)
+    return 0
+
+
+def model_worker() -> int:
+    """[model] in a process of its own (``chip_smoke.py --model-worker``).
+    After ``torch.profiler`` has recorded many device activities, every
+    later launch of its process costs more host time
+    (``chip_model_ab.py``: [9]'s populate a fifth slower after profiling
+    16,384 launches and a third after [model], unchanged after profiling
+    one launch or after [model]'s CPU work), so [model] is
+    neither timed after the profiled phases of this script nor lets its
+    own profiled decode steps slow a phase after it."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    model_phase(torch.device("cuda"))
     return 0
 
 
@@ -1483,6 +1532,306 @@ def steady_state_phase():
     log(f"[steady] an empty kernel {floor:.7f} ms (the floor of one launch); "
         f"fast_window's bytes bound at a full window ({DEFAULT_BLOCK} rows) "
         f"{moved / HBM_BYTES_PER_S * 1e3:.9f} ms ({moved} B)")
+
+
+# -- [model]: the model stack's serving path ----------------------------------
+
+# Card against the CPU route, rtol = atol: the CPU tests' whole-model
+# tolerances at reduced() (f32 1e-4; bf16 the JAX suite's ATOL, 0.12 and
+# rwkv 0.35, with a mean below 0.02); rwkv in f32 1e-2, because its
+# parallel time-mix rounds each step's output to bf16 (as the reference
+# does) and where the card's sum order flips one such rounding that step
+# moves by 2^-8 of itself: [model] (a) shows the cause by running rwkv in
+# f32 again with the steps kept in f32, held to 1e-4; at full width f32
+# 1e-5 (4.1e-6 measured on the H100), which TF32 products exceed: (b)
+# runs them once with TF32 on and requires that they fail it
+MODEL_TOL = {"float32": 1e-4, "bfloat16": 0.12}
+MODEL_TOL_RWKV = {"float32": 1e-2, "bfloat16": 0.35}
+FULL_F32_TOL = 1e-5
+BF16_MEAN = 0.02
+
+
+def model_batch(models, cfg, B, S, kind, seed):
+    """tests/test_models.py's batch for ``cfg``, drawn with numpy on the
+    CPU (tokens, stubbed frontend embeddings, M-RoPE positions)."""
+    import numpy as np
+    import torch
+    r = np.random.default_rng(seed)
+    out = {}
+    for k, v in models.input_specs(cfg, S, B, kind).items():
+        if v.dtype == torch.int32:
+            out[k] = torch.from_numpy(r.integers(0, cfg.vocab, tuple(v.shape))
+                                      .astype(np.int32))
+        else:
+            out[k] = torch.from_numpy((r.standard_normal(tuple(v.shape))
+                                       * 0.02).astype(np.float32)).to(v.dtype)
+    if "mrope_pos" in out:
+        out["mrope_pos"] = torch.arange(S, dtype=torch.int32)[None, :, None] \
+            .expand(B, S, 3).contiguous()
+    return out
+
+
+def held(got, want, tol, what, mean=None):
+    """``got`` (card) against ``want`` (CPU) to rtol = atol = ``tol`` and,
+    where given, a mean error below ``mean``; returns the max error."""
+    import torch
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    err = (g - w).abs()
+    ok = g.shape == w.shape and bool(torch.isfinite(g).all()) \
+        and bool((err <= tol + tol * w.abs()).all())
+    if mean is not None:
+        ok = ok and float(err.mean()) < mean
+    check(ok, f"{what}: max abs err {float(err.max()):.4g} mean "
+              f"{float(err.mean()):.4g} against the tolerance {tol:g}"
+              + (f" (mean {mean:g})" if mean is not None else ""))
+    return float(err.max())
+
+
+def model_phase(dev):
+    """[model]: (a) every arch at ``reduced()`` on the card against the
+    CPU route on the same seeded params, f32 and bf16: ``lm_loss``,
+    prefill logits and one decode step (hubert: forward and loss);
+    (b) Qwen1.5-0.5B at full width, bf16, seeded params: prefill of 8 x 512
+    tokens, 64 greedy decode steps with the tokens on the card and the
+    loop under the sync check, a teacher-forced 2 x 64 prompt (decode
+    against ``forward`` at every position), card against CPU in f32 on a
+    2 x 32 prompt and 4 decode steps; (c) prefill and decode tokens/s,
+    host ms a decode step, device activities a step and the device's idle
+    share over profiled decode steps, beside the step's byte bound."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs, models
+    from repro_torch.kernels import ops
+    from repro_torch.models import rwkv
+    from repro_torch.models.modules import tree_leaves, tree_map
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+
+    def on(tree, device):
+        return tree_map(lambda a: a.to(device), tree)
+
+    # (a) the ten archs at reduced(), card against CPU
+    worst = {}
+    for arch in configs.ARCH_IDS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)),
+                                      dtype=dtype)
+            tol = (MODEL_TOL_RWKV if cfg.rwkv else MODEL_TOL)[dtype]
+            mean = BF16_MEAN if dtype == "bfloat16" else None
+            cpu = models.make_params(cfg, torch.Generator().manual_seed(0),
+                                     "cpu")
+            gpu = on(cpu, dev)
+            batch = model_batch(models, cfg, 2, 64, "train", 1)
+            gbatch = on(batch, dev)
+            what = f"[model] (a) {arch} {dtype}"
+            errs = [held(models.lm_loss(cfg, gpu, gbatch),
+                         models.lm_loss(cfg, cpu, batch), tol,
+                         f"{what} lm_loss", mean)]
+            if cfg.has_decode:
+                pre = {k: v for k, v in batch.items() if k != "targets"}
+                errs.append(held(models.prefill(cfg, gpu, on(pre, dev))[0],
+                                 models.prefill(cfg, cpu, pre)[0], tol,
+                                 f"{what} prefill logits", mean))
+                toks = torch.arange(2, dtype=torch.int32)
+                st_g = models.init_decode_state(cfg, 2, 68, device=dev)
+                st_c = models.init_decode_state(cfg, 2, 68, device="cpu")
+                errs.append(held(
+                    models.decode_step(cfg, gpu, st_g, toks.to(dev), 64)[1],
+                    models.decode_step(cfg, cpu, st_c, toks, 64)[1], tol,
+                    f"{what} decode logits", mean))
+            else:
+                h_g = models.forward(cfg, gpu, gbatch)[0]
+                errs.append(held(h_g, models.forward(cfg, cpu, batch)[0], tol,
+                                 f"{what} forward", mean))
+            worst[arch, dtype] = (max(errs), tol)
+            if cfg.rwkv and dtype == "float32":
+                # the cause of rwkv's f32 tolerance: with each step's output
+                # kept in f32 the card holds the f32 tolerance of the rest
+                rwkv.YS_DTYPE = torch.float32
+                try:
+                    f32_steps = max(
+                        held(models.lm_loss(cfg, gpu, gbatch),
+                             models.lm_loss(cfg, cpu, batch), MODEL_TOL[dtype],
+                             f"{what} lm_loss, steps in f32"),
+                        held(models.prefill(cfg, gpu, on(pre, dev))[0],
+                             models.prefill(cfg, cpu, pre)[0], MODEL_TOL[dtype],
+                             f"{what} prefill logits, steps in f32"))
+                finally:
+                    rwkv.YS_DTYPE = torch.bfloat16
+    for arch in configs.ARCH_IDS:
+        log(f"[model] (a) {arch}: card vs CPU, max abs err f32 "
+            f"{worst[arch, 'float32'][0]:.3g} (tol {worst[arch, 'float32'][1]:g})"
+            f", bf16 {worst[arch, 'bfloat16'][0]:.3g} (tol "
+            f"{worst[arch, 'bfloat16'][1]:g}, mean < {BF16_MEAN:g})")
+    log(f"[model] (a) rwkv6-3b f32 with the time-mix steps kept in f32 (not "
+        f"rounded to bf16): max abs err {f32_steps:.3g} (tol "
+        f"{MODEL_TOL['float32']:g})")
+    log(f"[model] (a) {time.perf_counter() - t0:.1f} s")
+
+    # (b) Qwen1.5-0.5B at full width, bf16
+    cfg = configs.get_config("qwen1.5-0.5b")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = models.make_params(cfg, gen, dev)
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    w_bytes = sum(a.numel() * a.element_size() for a in tree_leaves(params))
+    B, S, NEW, PROF = 8, 512, 64, 8
+    prompt = torch.randint(0, cfg.vocab, (B, S), generator=gen, device=dev,
+                           dtype=torch.int32)
+    ops.reset_launches()
+    # warm-up: PyTorch and cuBLAS load their kernels at first use
+    models.prefill(cfg, params, {"tokens": prompt[:, :64]})
+    warm = models.init_decode_state(cfg, B, 8, device=dev)
+    for i in range(2):
+        models.decode_step(cfg, params, warm, prompt[:, i], i)
+    del warm
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        logits, kvs = models.prefill(cfg, params, {"tokens": prompt})
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t1)
+    prefill_s = statistics.median(times)
+    check(tuple(logits.shape) == (B, cfg.vocab)
+          and bool(torch.isfinite(logits.float()).all()),
+          f"[model] (b) prefill logits {tuple(logits.shape)} not finite")
+    state = models.init_decode_state(cfg, B, S + NEW + PROF, device=dev)
+    state["pos0"]["k"][:, :, :S] = kvs[0][0]
+    state["pos0"]["v"][:, :, :S] = kvs[0][1]
+    del kvs
+    tok = logits.argmax(-1)
+    pos = torch.full((), S, dtype=torch.int64, device=dev)
+    out = torch.empty((B, NEW), dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    with sync_error():
+        for i in range(NEW):
+            state, lg = models.decode_step(cfg, params, state, tok, pos)
+            tok = lg.argmax(-1)
+            out[:, i] = tok
+            pos += 1
+        enqueue_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"[model] (b) the model path launched "
+                                    f"one of the port's kernels: {counts}")
+    check(bool(((out >= 0) & (out < cfg.vocab)).all())
+          and bool(torch.isfinite(lg.float()).all()),
+          "[model] (b) decode tokens out of range or logits not finite")
+    written = state["pos0"]["k"][:, :, S + NEW - 1].float().abs().sum()
+    check(float(written) > 0, "[model] (b) the last step wrote no K")
+    # device activities and idle share over PROF more steps (profiler)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(PROF):
+            state, lg = models.decode_step(cfg, params, state, tok, pos)
+            tok = lg.argmax(-1)
+            pos += 1
+        torch.cuda.synchronize()
+    events = device_events(prof)
+    per_step, idle = len(events) / PROF, idle_share(events)
+    kernel_names = {e.name for e in events}
+    del state, prof, events
+    torch.cuda.empty_cache()
+    # the byte bound of a decode step: the weights once, the K and V
+    # positions it reads (the mean length over the 64 steps), its logits
+    kv_bytes = 2 * cfg.n_layers * B * (S + NEW / 2) * cfg.n_kv_heads \
+        * cfg.head_dim * 2
+    bound_ms = (w_bytes + kv_bytes + B * cfg.vocab * 2) / HBM_BYTES_PER_S * 1e3
+    # prefill's operations bound: the products (the LM head on the last
+    # token only) and the attention scores and sums over the causal half
+    # (query i reads keys 0..i: S (S + 1) / 2 pairs)
+    d, L = cfg.d_model, cfg.n_layers
+    layer_params = 4 * d * d + 3 * d * cfg.d_ff
+    prefill_ops = 2 * L * layer_params * B * S + 2 * L * B * S * (S + 1) * d \
+        + 2 * B * d * cfg.vocab
+    prefill_bound_ms = prefill_ops / 989e12 * 1e3
+
+    # teacher-forced: decode logits against forward's at every position
+    toks = torch.randint(0, cfg.vocab, (2, 64), generator=gen, device=dev,
+                         dtype=torch.int32)
+    h, _, _ = models.forward(cfg, params, {"tokens": toks}, remat_policy="none")
+    full = h @ params["embed"].T
+    st = models.init_decode_state(cfg, 2, 64, device=dev)
+    dec = []
+    for i in range(64):
+        st, lg = models.decode_step(cfg, params, st, toks[:, i], i)
+        dec.append(lg)
+    tol = MODEL_TOL["bfloat16"]
+    tf_err = held(torch.stack(dec, dim=1), full, tol, "[model] (b) "
+                  "teacher-forced decode against forward", BF16_MEAN)
+    tf_mean = float((torch.stack(dec, dim=1).float() - full.float()).abs()
+                    .mean())
+    del params, st, h, full, dec
+    torch.cuda.empty_cache()
+
+    # card against CPU in f32 at full width: a 2 x 32 prompt, 4 decode
+    # steps; then the card again with TF32 products, which must fail the
+    # tolerance (the check sees TF32)
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p_g = models.make_params(cfg32, torch.Generator(device=dev).manual_seed(1),
+                             dev)
+    p_c = on(p_g, "cpu")
+    toks = torch.randint(0, cfg.vocab, (2, 36), generator=gen, device=dev,
+                         dtype=torch.int32)
+    errs = []
+    for params_, device, tf32 in ((p_g, dev, False),
+                                  (p_c, torch.device("cpu"), False),
+                                  (p_g, dev, True)):
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+        t_ = toks.to(device)
+        lg, kvs = models.prefill(cfg32, params_, {"tokens": t_[:, :32]})
+        st = models.init_decode_state(cfg32, 2, 36, device=device)
+        st["pos0"]["k"][:, :, :32] = kvs[0][0]
+        st["pos0"]["v"][:, :, :32] = kvs[0][1]
+        outs = [lg]
+        for i in range(4):
+            st, lg = models.decode_step(cfg32, params_, st, t_[:, 32 + i],
+                                        32 + i)
+            outs.append(lg)
+        errs.append(outs)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card, cpu_, card_tf32 = errs
+    f32_err = max(held(g, c, FULL_F32_TOL, f"[model] (b) f32 full width, "
+                       f"card vs CPU, logits {i}")
+                  for i, (g, c) in enumerate(zip(card, cpu_)))
+    tf32_err, tf32_fails = 0.0, False
+    for g, c in zip(card_tf32, cpu_):
+        e = (g.float().cpu() - c).abs()
+        tf32_err = max(tf32_err, float(e.max()))
+        tf32_fails |= bool((e > FULL_F32_TOL + FULL_F32_TOL * c.abs()).any())
+    check(tf32_fails, f"[model] (b) f32 full width with TF32 products: max "
+                      f"abs err {tf32_err:.4g} passes the tolerance "
+                      f"{FULL_F32_TOL:g}, which then cannot see TF32")
+    del p_g, p_c, errs, card, cpu_, card_tf32, st, kvs
+    torch.cuda.empty_cache()
+
+    log(f"[model] (b) Qwen1.5-0.5B full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff {cfg.d_ff}, "
+        f"vocab {cfg.vocab}, tied, QKV bias, bf16): {n_params} params, "
+        f"{w_bytes / 1e9:.3f} GB; prefill {B} x {S}, {NEW} greedy decode "
+        f"steps under the sync check, tokens {out[0, :8].tolist()}...; launches "
+        f"of the port's kernels {counts}")
+    log(f"[model] (b) teacher-forced 2 x 64 decode vs forward: max abs err "
+        f"{tf_err:.4g} (tol {tol:g} rtol and atol), mean {tf_mean:.4g}"
+        f" (< {BF16_MEAN:g}); f32 card vs CPU, 2 x 32 prompt + 4 steps: max "
+        f"abs err {f32_err:.4g} (tol {FULL_F32_TOL:g}); the same with TF32 "
+        f"products {tf32_err:.4g}, which fails it")
+    log(f"[model] (c) prefill {prefill_s * 1e3:.3f} ms, {B * S / prefill_s:.1f} "
+        f"tokens/s (operations bound {prefill_bound_ms:.4f} ms, "
+        f"{prefill_ops / 1e12:.3f} TFLOP at 989 TFLOP/s bf16); decode "
+        f"{decode_s / NEW * 1e3:.4f} ms a step, {B * NEW / decode_s:.1f} "
+        f"tokens/s, host {enqueue_s / NEW * 1e3:.4f} ms a step (enqueue); "
+        f"byte bound {bound_ms:.4f} ms a step ({w_bytes} B of weights, "
+        f"{kv_bytes:.0f} B of K and V), {decode_s / NEW * 1e3 / bound_ms:.1f}"
+        f" times it")
+    log(f"[model] (c) profiled decode steps ({PROF}): {per_step:.1f} device "
+        f"activities a step, {len(kernel_names)} distinct, idle share "
+        f"{idle:.4f}")
+    log(f"[model] total {time.perf_counter() - t0:.1f} s")
 
 
 def main() -> int:
@@ -2093,6 +2442,12 @@ def main() -> int:
     log(f"[steady] total wall {time.perf_counter() - t_start:.1f} s")
     launch_count_phase(replays)
     log(f"[10] total wall {time.perf_counter() - t_start:.1f} s")
+    # -- [model] the model stack's serving path, in a process of its own
+    torch.cuda.empty_cache()
+    model = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--model-worker"], timeout=900)
+    check(model.returncode == 0, f"[model] exited {model.returncode}")
+    log(f"[model] total wall {time.perf_counter() - t_start:.1f} s")
     left = live_children()
     check(not left, f"processes this script started are still running: {left}")
 
@@ -2129,4 +2484,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-route-worker"]:
         sys.exit(cpu_route_worker(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--model-worker"]:
+        sys.exit(model_worker())
     sys.exit(main())

@@ -1,10 +1,12 @@
-"""Qwen1.5-0.5B's KV-cache geometry [hf:Qwen/Qwen1.5-0.5B, config.json:
-num_hidden_layers 24, hidden_size 1024, num_attention_heads 16,
-num_key_value_heads 16].
+"""Qwen1.5-0.5B [hf:Qwen/Qwen1.5-0.5B]: small dense, QKV bias, tied
+embeddings (config.json: num_hidden_layers 24, hidden_size 1024,
+num_attention_heads 16, num_key_value_heads 16, intermediate_size 2816,
+vocab_size 151936).
 
-The JAX package's ``configs/qwen1_5_0_5b.py`` holds the same numbers; the
-port keeps its own copy because ``repro.configs`` imports JAX.  A KV group
-is one layer (``examples/serve_tiered.py`` maps groups to layers).
+``CONFIG`` is the architecture; ``KV`` / ``REDUCED`` are its KV-cache
+geometry at full width and at ``reduced()``'s width, which the tiered
+paged-KV server (``serving/``) runs.  A KV group is one layer
+(``examples/serve_tiered.py`` maps groups to layers).
 """
 from __future__ import annotations
 
@@ -12,10 +14,18 @@ import dataclasses
 
 import torch
 
-N_LAYERS = 24
-N_HEADS = 16
-N_KV_HEADS = 16
-HEAD_DIM = 1024 // 16
+from .base import ArchConfig, reduced
+
+CONFIG = ArchConfig(
+    name="qwen1.5-0.5b", family="dense",
+    n_layers=24, d_model=1024, n_heads=16, n_kv_heads=16,
+    d_ff=2816, vocab=151936, mlp="swiglu", qkv_bias=True, rope="rope",
+    tie_embeddings=True)
+
+N_LAYERS = CONFIG.n_layers
+N_HEADS = CONFIG.n_heads
+N_KV_HEADS = CONFIG.n_kv_heads
+HEAD_DIM = CONFIG.head_dim
 
 
 @dataclasses.dataclass(frozen=True)
@@ -29,6 +39,7 @@ class KVGeometry:
 
 # full width: 24 * 16 * 16 * 64 * 2 B = 786,432 B per block and pool
 KV = KVGeometry(N_LAYERS, N_KV_HEADS, HEAD_DIM)
-# the width of the JAX package's ``configs.reduced`` (4 layers, 2 KV heads,
-# d_head 32), for CPU tests
-REDUCED = KVGeometry(4, 2, 32)
+# the width of ``configs.reduced`` (4 layers, 2 KV heads, d_head 32), for
+# CPU tests
+_r = reduced(CONFIG)
+REDUCED = KVGeometry(_r.n_layers, _r.n_kv_heads, _r.head_dim)

@@ -1,5 +1,7 @@
 """The port stands alone: no JAX, nothing of the JAX package, and no
 silent move to the CPU."""
+import ast
+import importlib
 import pathlib
 import re
 import subprocess
@@ -20,6 +22,8 @@ def submodules(pkg):
 CORE = submodules("core")
 OBS = submodules("obs")
 SERVICE = submodules("service")
+CONFIGS = submodules("configs")
+MODELS = submodules("models")
 MODULES = ["repro_torch", "repro_torch.kernels.ops", "repro_torch.kernels.build",
            "repro_torch.kernels.paged_attention",
            "repro_torch.kernels.alloc_scan", "repro_torch.kernels.fast_window",
@@ -28,14 +32,17 @@ MODULES = ["repro_torch", "repro_torch.kernels.ops", "repro_torch.kernels.build"
            "repro_torch.serving.serve_tiered", "repro_torch.configs",
            "repro_torch.configs.qwen2_5_14b", "repro_torch.core",
            "repro_torch.quickstart", "repro_torch.obs",
-           "repro_torch.service"] + CORE + OBS + SERVICE
+           "repro_torch.service", "repro_torch.models",
+           "repro_torch.launch.analysis"] + CORE + OBS + SERVICE + CONFIGS \
+    + MODELS
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                        re.MULTILINE)
 
 
 def test_no_source_imports_jax_or_repro():
     files = sorted(PORT.rglob("*.py")) + [SRC.parent / "chip_smoke.py",
-                                          SRC.parent / "chip_ab.py"]
+                                          SRC.parent / "chip_ab.py",
+                                          SRC.parent / "chip_model_ab.py"]
     assert len(files) >= 10
     bad = [str(f) for f in files if FORBIDDEN.search(f.read_text())]
     assert bad == []
@@ -66,6 +73,32 @@ def test_service_and_obs_modules_are_all_checked():
                        "repro_torch.service.query",
                        "repro_torch.service.resilience",
                        "repro_torch.service.search"]
+
+
+def test_configs_and_models_modules_are_all_checked():
+    """Every module of the reference's ``configs`` and ``models`` has its
+    twin, the import check covers each, and the packages export the
+    reference's public names."""
+    ref = SRC / "repro"
+    for pkg, mods in (("configs", CONFIGS), ("models", MODELS)):
+        want = sorted(f"repro_torch.{pkg}.{f.stem}"
+                      for f in (ref / pkg).glob("*.py") if f.stem != "__init__")
+        assert mods == want
+        assert set(mods) <= set(MODULES)
+    assert len(CONFIGS) == 11 and MODELS == [
+        "repro_torch.models.layers", "repro_torch.models.mamba",
+        "repro_torch.models.model", "repro_torch.models.modules",
+        "repro_torch.models.moe", "repro_torch.models.rwkv"]
+    for pkg in ("configs", "models"):
+        tree = ast.parse((ref / pkg / "__init__.py").read_text())
+        public = {a.asname or a.name for node in tree.body
+                  if isinstance(node, ast.ImportFrom) and node.module
+                  for a in node.names}
+        public |= {e.value for node in tree.body if isinstance(node, ast.Assign)
+                   and node.targets[0].id == "__all__" for e in node.value.elts}
+        mod = importlib.import_module(f"repro_torch.{pkg}")
+        missing = sorted(n for n in public if not hasattr(mod, n))
+        assert public and not missing, (pkg, missing)
 
 
 def test_import_leaves_jax_out():
@@ -99,6 +132,16 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         SimBroker()
     with pytest.raises(RuntimeError, match="is_available"):
         SimBroker(device=None)
+    from repro_torch import configs, models
+    cfg = configs.reduced(configs.get_config("qwen1.5-0.5b"))
+    with pytest.raises(RuntimeError, match="is_available"):
+        models.make_params(cfg, torch.Generator())
+    with pytest.raises(RuntimeError, match="is_available"):
+        models.init_decode_state(cfg, 1, 8)
+    from repro_torch.launch import analysis
+    monkeypatch.setattr(analysis, "_BROKER", None)
+    with pytest.raises(RuntimeError, match="is_available"):
+        analysis.policy_sweep_summary(mc, [core.linux_default()], trace)
     # the CPU is there when asked for
     assert core.TieredMemSimulator(mc=mc, device="cpu").run(trace) \
         .summary()["faults"] > 0
