@@ -1,9 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's tiered paged-KV server, its paged decode
-attention, its model stack's serving path, its tiered-memory simulator
-(the time-blocked engine, and the per-step engine and the sequential
-fault path beside it) and the simulation service over it on one NVIDIA
-GPU.
+attention, its model stack's serving and training paths, its
+tiered-memory simulator (the time-blocked engine, and the per-step engine
+and the sequential fault path beside it) and the simulation service over
+it on one NVIDIA GPU.
 
 Run from the repository root with no arguments:
 
@@ -73,7 +73,7 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
 9. the quickstart (``repro_torch.quickstart``) on the card at full size
    under the default (blocked) engine: ``benchmark_machine()``, the
    16,384-step ``kv_store`` trace, Linux first-touch (Radiant BHi+Mig runs
-   at full size in [service] (a), and at [10]'s size in [10]), held to the golden
+   at [10]'s size in [10] and in [service] (a)), held to the golden
    file of the JAX package's outputs
    (``src/repro_torch/core/golden/quickstart.json``; the trace's digest
    first, then every summary key and the last and populate-phase rows of
@@ -108,19 +108,24 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    plan's, a valid trace), a 2-trace grid of 4 lanes with a mid-run free
    and three CostConfigs; a machine of 33 to 64 ways, blocked against
    per-step; then the sequential fault path against the batched one on a
-   small case (footprint 2^10, 64 run steps);
+   small case (footprint 2^9, 32 run steps);
 [service] the simulation service (``repro_torch.service``) on the card,
-   with ``repro_torch.obs.Telemetry`` on: (a) at full size, the
-   quickstart's two policies on its trace as a ``TraceSpec``, each
-   submitted three times, through one ``SimBroker`` flush (one
-   ``sweep_lanes`` call of 2 lanes, one compile of the reference's
-   accounting, 4 in-flight joins), each future held to the golden file,
+   with ``repro_torch.obs.Telemetry`` on: (a) at [10]'s size (the
+   quickstart's ``kv_store`` trace cut to [10]'s footprint and run steps,
+   so that the script stays within its time limit; [9] holds the full
+   size to the golden file), the quickstart's two policies on that trace
+   as a ``TraceSpec``, each submitted three times, through one
+   ``SimBroker`` flush (one ``sweep_lanes`` call of 2 lanes, one compile
+   of the reference's accounting, 4 in-flight joins), each future
+   bitwise against a solo blocked run of its policy on the broker's
+   (idle-padded) trace,
    ``alloc_scan`` / ``fast_window`` launches == the steps with a fault /
    the plan's fast segments; the same queries again answered from the
    cache with no ``sweep_lanes`` call and no launch; the exported Perfetto
    trace validated and the snapshot's counters printed; wall clock and
-   queries/s, cold against cached; (b) at [10]'s size, its six policies as
-   queries (mixed priorities, one deadline; two buckets by scan period)
+   queries/s, cold against cached and against the solo runs; (b) at
+   [10]'s size, its six policies as queries (mixed priorities, one
+   deadline; two buckets by scan period)
    and the trace idle-padded to a power of two (a third bucket), each
    future bitwise against its solo blocked run; then a seeded
    ``fail_lane`` poisons one lane and bisection isolates it
@@ -153,6 +158,33 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    step, device activities a step and the device's idle share over 8
    profiled decode steps, beside the step's byte bound (the weights once,
    the K and V it reads, its logits);
+[train] the model stack's training path (``repro_torch.data``,
+   ``training``, ``checkpoint``, ``launch.train``; no kernel of the port on
+   it), in a process of its own (``--train-worker``, waited for, started
+   with ``CUBLAS_WORKSPACE_CONFIG`` set for deterministic algorithms):
+   (a) ``data.batch_at`` at three vocabularies, glibc's ``powf`` on every
+   draw and the bias corrections, card against CPU bitwise, the learning
+   rate within an ulp of its peak; each of the ten archs at
+   ``configs.reduced()``, f32 and bf16, B, S = 2, 64: one train step at lr
+   1e-3 on the card against the CPU route on the same params and batch
+   (loss, grad norm, every param, its mean error against the step's mean
+   move, and every moment after the step; rwkv at three seeds), the remat
+   policies "none", "dots" and "full" bitwise equal on the card, two
+   microbatches against one; (b) Qwen1.5-0.5B at full width,
+   bf16 params, f32 moments, remat "full", ``launch.train``'s optimizer
+   defaults: 30 steps of 8 x 512 tokens from ``data.batch_at`` under the
+   sync check, the losses finite and falling, ms a step and tokens/s
+   (median of steps 11-30) beside the step's operations bound, the peak
+   memory of one step under each remat policy, the card against the CPU
+   in f32 on 2 x 32 tokens; (c) tests/test_launch.py's kill-and-resume run
+   through ``python -m repro_torch.launch.train`` on the card (its two
+   processes one after the other, on a thread beside (a), joined before
+   (b)'s timing), and in one
+   process 8 steps + checkpoint + restore + 4 steps bitwise equal to 12;
+   (d) ``repro_torch.train_100m`` at its settings but 100 steps of its
+   300 (the script's time limit), with its checkpoint at 100, its first
+   and last logged loss and ms a step; then, last, device activities a
+   step and the idle share over 3 profiled steps of (b);
 11. print the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -791,13 +823,12 @@ def launch_count_phase(replays):
 
 def quickstart_phase():
     """[9] the quickstart on the card at full size under the default
-    (blocked) engine, Linux first-touch alone (BHi+Mig runs at full size
-    in [service] (a), beside it, and solo at [10]'s size), held to the golden
+    (blocked) engine, Linux first-touch alone (BHi+Mig runs at [10]'s
+    size, solo and in [service] (a)), held to the golden
     file of the JAX package's outputs; the populate windows and the
     run-phase windows timed apart.  Returns the launches of each kernel,
-    per policy (chunks replayed, chunks) of alloc_scan in its timed run
-    (the device count read once, after the run), and the run's seconds
-    (populate, run phase)."""
+    and per policy (chunks replayed, chunks) of alloc_scan in its timed
+    run (the device count read once, after the run)."""
     import torch
     from repro_torch import quickstart as tq
     from repro_torch.core import (TieredMemSimulator, benchmark_machine,
@@ -881,27 +912,30 @@ def quickstart_phase():
             f"{host['steps']:.4f} s; the rest of the run phase's "
             f"{t3 - t2:.4f} s is waiting for the device and the loop itself "
             f"({t3 - t2 - sum(host.values()):.4f} s)")
-    return launches, replays, (t2 - t1, t3 - t2)
+    return launches, replays
 
 
-def service_phase(solo_s, solo10):
+def service_phase(solo10):
     """[service] the simulation service on the card: ``SimQuery`` ->
     ``SimBroker.submit`` / ``drain`` -> one ``sweep_lanes`` call per
     bucket flush -> the lanes' ``BlockedRunner`` and its kernels ->
     futures and the result cache, with ``Telemetry`` on.
 
-    (a) At full size: the quickstart's two policies on
-    ``benchmark_machine()`` and its 16,384-step ``kv_store`` trace as a
+    (a) At [10]'s size (the full size, a second 100 s run of [9]'s
+    populate loop, would take the script past its time limit): the
+    quickstart's two policies on ``benchmark_machine()`` and its
+    ``kv_store`` trace at [10]'s footprint and run steps as a
     ``TraceSpec``, each submitted three times (in-flight joins): one
     bucket, one flush, one ``sweep_lanes`` call of 2 lanes, one compile of
-    the reference's accounting; each future held to the golden file;
+    the reference's accounting; each future bitwise against a solo blocked
+    run of its policy on the broker's canonical (idle-padded) trace;
     ``alloc_scan`` launches == the steps with a fault, ``fast_window``
     launches == the plan's fast segments (counts set to 0 just before the
     round and read just after).  A second round of the same queries is
     answered from the cache: no ``sweep_lanes`` call, no launch.  The
     exported Perfetto trace passes ``validate_trace_events``; the
     snapshot's counters are printed; wall clock and queries/s, cold
-    against cached, beside [9]'s solo run (``solo_s``).
+    against cached, beside the solo runs.
 
     (b) At [10]'s size: the six policies of [10] as queries on [10]'s
     trace (two buckets: the scan period splits them) with mixed
@@ -919,7 +953,7 @@ def service_phase(solo_s, solo10):
     from repro_torch import quickstart as tq
     from repro_torch.core import (CostConfig, TraceSpec, TieredMemSimulator,
                                   benchmark_machine, fault_step_mask,
-                                  pad_trace, sim, trace_digest, workloads)
+                                  pad_trace, sim, workloads)
     from repro_torch.kernels import ops
     from repro_torch.obs import (FaultInjector, Telemetry, fail_lane,
                                  validate_trace_events)
@@ -927,17 +961,16 @@ def service_phase(solo_s, solo10):
                                      SimQuery)
 
     t_phase = time.perf_counter()
-    golden = tq.load_golden()
     mc = benchmark_machine()
-    spec = TraceSpec(workload="memcached", footprint=1 << 18, run_steps=4096)
+    spec = TraceSpec(workload="memcached", **REDUCED)
     names, pols = zip(*tq.POLICIES)
     queries = [SimQuery(trace=spec, policy=pc, machine=mc)
                for _ in range(3) for pc in pols]
     tel = Telemetry(tracing=True)
     broker = SimBroker(max_lanes=64, max_wait=1e9, telemetry=tel)
     trace = broker.canonical_trace(queries[0])
-    check(trace_digest(trace) == golden["trace"]["digest"],
-          "[service] the spec's trace differs from the golden file's")
+    solos = [timed_run(TieredMemSimulator(mc=mc, pc=pc), trace)
+             for pc in pols]
     fault_steps = int(fault_step_mask(trace, mc).sum())
     # the flush's plan, made by the engine itself (not through
     # sweep_runner, which would record the broker's compile signature)
@@ -963,21 +996,14 @@ def service_phase(solo_s, solo10):
     check(counts["fast_window"] == segments > 0,
           f"[service] (a) fast_window launches {counts['fast_window']} != "
           f"{segments} fast segments of the plan")
-    base = None
-    for i, (q, f) in enumerate(zip(queries, futs)):
-        name = names[i % len(pols)]
-        res = f.result()
-        check(res is futs[i % len(pols)].result(),
+    for i, f in enumerate(futs):
+        check(f.result() is futs[i % len(pols)].result(),
               f"[service] (a) query {i}: not joined onto its lane")
-        bad = tq.mismatches({"label": q.policy.label(),
-                             **tq.outputs(res, trace)},
-                            golden["policies"][name])
-        check(not bad, f"[service] (a) {name}: differs from the golden "
-              f"file: {bad[:8]}")
-        if i < len(pols):
-            if base is None:
-                base = tq.run_phase(res, trace)[0]
-            log(f"[service] (a) {tq.report_line(name.strip(), res, trace, base)}")
+    lanes_bitwise([f.result() for f in futs[:len(pols)]],
+                  [r for r, _, _ in solos], "[service] (a)")
+    base = tq.run_phase(futs[0].result(), trace)[0]
+    for name, f in zip(names, futs):
+        log(f"[service] (a) {tq.report_line(name.strip(), f.result(), trace, base)}")
 
     ops.reset_launches()
     t0 = time.perf_counter()
@@ -1003,14 +1029,15 @@ def service_phase(solo_s, solo10):
     hists = {k: (v["count"], round(v.get("sum", 0.0), 4))
              for k, v in tel.snapshot()["metrics"].items()
              if isinstance(v, dict)}
-    n = len(queries)
-    solo_pop, solo_run = solo_s
-    log(f"[service] (a) {n} queries ({len(pols)} policies x 3) at full size "
-        f"through one flush of {st.lanes_run} lanes: each future == golden "
-        f"file; launches {counts} ({segments} fast segments of the plan); "
-        f"cold round {cold_s:.2f} s ({n / cold_s:.4f} queries/s, "
-        f"{cold_s / (solo_pop + solo_run):.3f}x [9]'s solo Linux run's "
-        f"{solo_pop + solo_run:.2f} s), cached round {cached_s * 1e3:.3f} ms "
+    n, solo_s = len(queries), [t for _, _, t in solos]
+    log(f"[service] (a) {n} queries ({len(pols)} policies x 3) at [10]'s "
+        f"size ({spec.build(mc).n_steps} steps, idle-padded to "
+        f"{trace.n_steps}) "
+        f"through one flush of {st.lanes_run} lanes: each future == its "
+        f"solo blocked run bitwise; launches {counts} ({segments} fast "
+        f"segments of the plan); cold round {cold_s:.2f} s "
+        f"({n / cold_s:.4f} queries/s; the solo runs {solo_s[0]:.2f} and "
+        f"{solo_s[1]:.2f} s), cached round {cached_s * 1e3:.3f} ms "
         f"({n / cached_s:.1f} queries/s), launches {counts2}; trace "
         f"{len(obj['traceEvents'])} events, {len(spans)} spans, valid")
     log(f"[service] (a) counters {json.dumps(counters, sort_keys=True)}")
@@ -1166,10 +1193,11 @@ def cpu_route_phase(width=6):
     (``debug=True``; ``engines_agree``) and against the port's own CPU
     route, field for field over the final state and the timeline, at a
     reduced size; the CPU runs go to worker processes (this script with
-    ``--cpu-route-worker``, ``width`` at a time) while the card runs.
-    Every worker is waited for, and killed first if the phase fails, so
-    none outlives it.  Then one small case (``benchmark_machine()``,
-    footprint 2^10, 64 run steps) adds the sequential fault path against
+    ``--cpu-route-worker``, ``width`` at a time) while the card runs every
+    case, and are read once the card is done with all of them.  Every
+    worker is waited for, and killed first if the phase fails, so none
+    outlives it.  Then one small case (``benchmark_machine()``,
+    footprint 2^9, 32 run steps) adds the sequential fault path against
     the batched one on the card.  Returns how the f32 timeline keys held
     between the engines."""
     import os
@@ -1197,7 +1225,8 @@ def cpu_route_phase(width=6):
     with tempfile.TemporaryDirectory() as tmp:
         try:
             top_up(tmp)
-            for i, (name, mc, pc) in enumerate(cases):
+            ran = []
+            for name, mc, pc in cases:
                 trace = workloads.kv_store(mc, **REDUCED)
                 fault_steps = int(fault_step_mask(trace, mc).sum())
                 card, runner, blocked_s = timed_run(
@@ -1213,9 +1242,16 @@ def cpu_route_phase(width=6):
                                        debug=True), trace)
                 held.append(engines_agree(card, per_step,
                                           f"[10] {name}: blocked vs per-step"))
+                ran.append((trace, runner, counts, blocked_s, per_step_s))
                 top_up(tmp)
-                rc = procs[i].wait()
+            for i, (name, _, _) in enumerate(cases):
+                trace, runner, counts, blocked_s, per_step_s = ran[i]
+                card = solo[i]
+                while len(procs) <= i or procs[i].poll() is None:
+                    top_up(tmp)
+                    time.sleep(0.2)
                 top_up(tmp)
+                rc = procs[i].returncode
                 check(rc == 0, f"[10] {name}: the CPU route's worker "
                       f"exited with {rc}")
                 with open(Path(tmp) / f"{i}.pkl", "rb") as f:
@@ -1232,7 +1268,7 @@ def cpu_route_phase(width=6):
                 s = card.summary()
                 log(f"[10] {name}: card blocked == card per-step (state "
                     f"bitwise, integer timeline keys exact, f32 keys "
-                    f"{held[-1]}) == CPU route on all {len(fields)} state "
+                    f"{held[i]}) == CPU route on all {len(fields)} state "
                     f"fields and {len(timeline)} timeline keys; "
                     f"{trace.n_steps} steps, windows {runner.plan.counts}, "
                     f"{counts['fast_window']} fast_window launches, faults "
@@ -1248,7 +1284,7 @@ def cpu_route_phase(width=6):
                 p.wait()
     held += sweep_cases(cases, solo)
     mc = benchmark_machine()
-    trace = workloads.kv_store(mc, 1 << 10, run_steps=64)
+    trace = workloads.kv_store(mc, 1 << 9, run_steps=32)
     pc = bhi_mig()
     batched, _, batched_s = timed_run(TieredMemSimulator(mc=mc, pc=pc), trace)
     seq, _, seq_s = timed_run(TieredMemSimulator(
@@ -1256,7 +1292,7 @@ def cpu_route_phase(width=6):
     how = engines_agree(batched, seq, "[10] sequential vs batched")
     check(seq.summary()["faults"] > 0, "[10] the small case has no fault")
     log(f"[10] sequential fault path == batched on the card "
-        f"(benchmark_machine(), footprint 2^10, 64 run steps, "
+        f"(benchmark_machine(), footprint 2^9, 32 run steps, "
         f"{pc.label()}, {trace.n_steps} steps, {seq.summary()['faults']} "
         f"faults): state bitwise, timeline f32 keys {how}; sequential "
         f"{seq_s:.2f} s, batched {batched_s:.2f} s")
@@ -1832,6 +1868,651 @@ def model_phase(dev):
         f"activities a step, {len(kernel_names)} distinct, idle share "
         f"{idle:.4f}")
     log(f"[model] total {time.perf_counter() - t0:.1f} s")
+
+
+# -- [train] the model stack's training path ----------------------------------
+
+# one train step, card against the CPU route, at the step's tolerances of
+# tests/test_torch_training.py, with lr 1e-3 from the first step so that
+# the update shows in the params (Adam's first step moves an element by
+# about lr): the loss and the params after the step to rtol = atol =
+# MODEL_TOL (f32 1e-4; bf16 the JAX suite's ATOL; rwkv MODEL_TOL_RWKV)
+# plus 2 lr (where an element's grad lies within rounding of 0, the step
+# moves it by about lr either way), and the mean error of each param leaf
+# the step moved to UPDATE_TOL of the mean move (a step that skips the
+# update, or moves by the wrong grads, gives about 1); the grad norm
+# (relative) and the moments (0.1 and 0.05 of the clipped grad and its
+# square) to MOMENT_TOL of each leaf's largest value, in bf16 with a mean
+# error below BF16_MEAN of it; in bf16 the MoE archs' expert weights by
+# that mean only (bf16 rounding swaps a token's near-tied experts, which
+# tests/test_torch_training.py shows against the reference run op by op)
+TRAIN_LR = 1e-3
+MOMENT_TOL = {"float32": 1e-4, "bfloat16": 0.12}
+UPDATE_TOL = {"float32": 1e-3, "bfloat16": 0.25}
+# rwkv rounds its time-mix steps to bf16 (as the reference does) and its
+# group norm amplifies the flip of one such rounding by the card's sum
+# order, so its train step is held to limits of about twice the largest of
+# three seeds' readings on the H100 (PERF.md), for the moments' (max,
+# mean) error of each leaf's largest value, the params' mean error of the
+# mean move and the grad norm; in f32 (a) runs it once more with the steps
+# kept in f32, which leaves only the sum order to show
+RWKV_TOL = {
+    "float32": dict(m_max=0.15, m_mean=1e-2, update=0.03, gnorm=0.04),
+    "f32 steps": dict(m_max=1e-3, m_mean=4e-5, update=5e-3, gnorm=2e-4),
+    "bfloat16": dict(m_max=0.65, m_mean=0.04, update=0.15, gnorm=0.1)}
+RWKV_SEEDS = (0, 1, 2)
+MOE_ARCHS = ("llama4-maverick-400b-a17b", "llama4-scout-17b-16e",
+             "jamba-v0.1-52b")
+BF16_FLOPS, F32_FLOPS = 989e12, 67e12    # H100 SXM dense peaks (data sheet)
+
+
+def leaf_err(got, want) -> tuple[float, float]:
+    """(max, mean) |got - want| over the leaf's largest |want|."""
+    import torch
+    g, w = got.detach().float().cpu(), want.detach().float().cpu()
+    check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+          f"leaf of shape {tuple(g.shape)} against {tuple(w.shape)}, "
+          f"or not finite")
+    scale = max(float(w.abs().max()), 1e-30)
+    d = (g - w).abs()
+    return float(d.max()) / scale, float(d.mean()) / scale
+
+
+def train_state(params, opt_state) -> dict:
+    """{path: tensor} of params, moments and step, in the reference's
+    checkpoint order."""
+    from repro_torch.checkpoint.ckpt import _flatten
+    return _flatten({"params": params, "opt": opt_state})
+
+
+def step_held(got, want, before, arch, dtype, what, rwkv_mode=None) -> dict:
+    """A card step's (params, opt_state, metrics) against the CPU's from
+    the params ``before`` it, at the module's tolerances (rwkv's at
+    ``RWKV_TOL[rwkv_mode or dtype]``); returns the readings: the params'
+    largest error over their tolerance, the largest mean error over the
+    mean move, the share of param elements in leaves the step moved, the
+    moments' largest (max, mean) error of the leaf's largest value, and
+    the grad norm's relative error."""
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint.ckpt import _flatten
+    rwkv = arch == "rwkv6-3b"
+    tol = (MODEL_TOL_RWKV if rwkv else MODEL_TOL)[dtype]
+    lim = RWKV_TOL[rwkv_mode or dtype] if rwkv else dict(
+        m_max=MOMENT_TOL[dtype], update=UPDATE_TOL[dtype],
+        gnorm=MOMENT_TOL[dtype],
+        m_mean=BF16_MEAN if dtype == "bfloat16" else None)
+    (gp, go, gm), (wp, wo, wm) = got, want
+    r = dict(loss=held(gm["loss"], wm["loss"], tol, f"{what} loss"),
+             params=0.0, update=0.0, moved=0.0, m_max=0.0, m_mean=0.0)
+    lr = float(wm["lr"])
+    check(float(gm["lr"]) == lr == float(np.float32(TRAIN_LR)),
+          f"{what} lr {lr}")
+    gs, ws, bs = train_state(gp, go), train_state(wp, wo), \
+        _flatten({"params": before})
+    check(list(gs) == list(ws), f"{what} state keys")
+    n_moved = n_all = 0
+    for k in ws:
+        g, w = gs[k].detach().float().cpu(), ws[k].detach().float()
+        if k.startswith("params/"):
+            d = (g - w).abs()
+            bound = 2 * lr + tol + tol * w.abs()
+            check(g.shape == w.shape and bool(torch.isfinite(g).all())
+                  and bool((d <= bound).all()),
+                  f"{what} {k}: max abs err {float(d.max()):.4g} against "
+                  f"2 lr + the tolerance {tol:g}")
+            r["params"] = max(r["params"], float((d / bound).max()))
+            move = float((w - bs[k].float()).abs().mean())
+            n_all += w.numel()
+            if move >= lr / 4:
+                n_moved += w.numel()
+                ratio = float(d.mean()) / move
+                check(ratio <= lim["update"],
+                      f"{what} {k}: mean error {float(d.mean()):.4g}, "
+                      f"{ratio:.4g} of the step's mean move {move:.4g}, "
+                      f"tolerance {lim['update']:g}")
+                r["update"] = max(r["update"], ratio)
+        elif k == "opt/step":
+            check(int(gs[k]) == int(ws[k]) == 1, f"{what} step")
+        else:
+            mx, mean = leaf_err(g, w)
+            r["m_mean"] = max(r["m_mean"], mean)
+            if lim["m_mean"] is not None:
+                check(mean < lim["m_mean"],
+                      f"{what} {k}: mean error {mean:.4g} of the leaf's "
+                      f"largest, limit {lim['m_mean']:g}")
+            if arch in MOE_ARCHS and dtype == "bfloat16" and "/moe/w_" in k:
+                continue
+            check(mx <= lim["m_max"], f"{what} {k}: max error {mx:.4g} of "
+                                      f"the leaf's largest, tolerance "
+                                      f"{lim['m_max']:g}")
+            r["m_max"] = max(r["m_max"], mx)
+    r["moved"] = n_moved / n_all
+    check(r["moved"] >= 0.5, f"{what}: the step moved leaves holding only "
+                             f"{r['moved']:.3f} of the params")
+    r["gnorm"] = abs(float(gm["grad_norm"]) / float(wm["grad_norm"]) - 1)
+    check(r["gnorm"] <= lim["gnorm"],
+          f"{what} grad norm {float(gm['grad_norm'])} against "
+          f"{float(wm['grad_norm'])}, tolerance {lim['gnorm']:g}")
+    return r
+
+
+def one_step(cfg, params, batch, device, **tc):
+    """One ``make_train_step`` step on copies of ``params`` on ``device``
+    (TrainConfig ``tc``, lr TRAIN_LR from the first step unless ``tc``
+    gives ``opt``)."""
+    from repro_torch.models.modules import tree_map
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train as ttrain
+    tc.setdefault("opt", topt.OptConfig(lr=TRAIN_LR, warmup_steps=1))
+    p = tree_map(lambda a: a.detach().clone().to(device), params)
+    st = topt.init_opt_state(p)
+    step = ttrain.make_train_step(cfg, ttrain.TrainConfig(**tc),
+                                  device=device)
+    return step(p, st, {k: v.to(device) for k, v in batch.items()})
+
+
+def train_bound_ms(cfg, B, S) -> tuple[float, float]:
+    """The operations bound of one train step of a dense decoder (ms, and
+    TFLOP): the products (6 x the product params x tokens: QKV, output,
+    MLP and the tied LM head) at the bf16 peak, and attention's scores
+    and sums over the causal half (forward and twice it backward) at the
+    f32 peak, which the port runs them in (no TF32); no recomputation."""
+    d, L, ff = cfg.d_model, cfg.n_layers, cfg.d_ff
+    hq, hkv = cfg.n_heads * cfg.head_dim, cfg.n_kv_heads * cfg.head_dim
+    layer = d * hq + 2 * d * hkv + hq * d + 3 * d * ff
+    bf16 = 6.0 * (L * layer + d * cfg.vocab) * B * S
+    f32 = 3 * 2 * 2.0 * B * L * hq * S * (S + 1) / 2
+    return (bf16 / BF16_FLOPS + f32 / F32_FLOPS) * 1e3, (bf16 + f32) / 1e12
+
+
+def train_phase(dev):
+    """[train]: (a) ``train_data`` and ``train_archs``, with (c)'s two
+    launcher processes (``kill_and_resume``) running beside them on a
+    thread that is joined before (b) starts, so that nothing shares the
+    card with (b)'s timing; (b) ``train_full_width``; (c)
+    ``train_resume``; (d) ``train_example``; then (b)'s device activities
+    and idle share over 3 profiled steps, last.  The temporary files are
+    removed whatever happens."""
+    import os
+    import shutil
+    import tempfile
+    import threading
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    killed = {"dir": os.path.join(tmp, "killed")}
+
+    def launcher_runs():
+        t = time.perf_counter()
+        try:
+            killed["run"] = kill_and_resume(killed["dir"])
+        except BaseException as exc:        # raised again on the main thread
+            killed["error"] = exc
+        killed["s"] = time.perf_counter() - t
+
+    launcher = threading.Thread(target=launcher_runs)
+    launcher.start()
+    try:
+        train_data(dev)
+        train_archs(dev)
+        launcher.join()
+        if "error" in killed:
+            raise killed["error"]
+        profiled = train_full_width(dev)
+        train_resume(dev, tmp, killed)
+        train_example(tmp)
+        profiled()
+    finally:
+        launcher.join()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[train] total {time.perf_counter() - t0:.1f} s")
+
+
+def train_data(dev):
+    """[train] (a): ``batch_at``, ``powf`` and the bias corrections, card
+    against CPU bit for bit; the learning rate within an ulp of its peak
+    (torch's ``cos`` on each); the CPU's are held to the reference's by
+    the CPU tests."""
+    import numpy as np
+    import torch
+
+    from repro_torch import libm
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.training import optimizer as topt
+    for vocab in (512, 32768, 151936):
+        dc = DataConfig(vocab=vocab, seq_len=512, global_batch=8)
+        for step in range(16):
+            got, want = batch_at(dc, step, device=dev), \
+                batch_at(dc, step, device="cpu")
+            check(all(torch.equal(got[k].cpu(), want[k]) for k in want),
+                  f"[train] (a) batch_at card != CPU at vocab {vocab}, "
+                  f"step {step}")
+    draws = 1.0 - torch.arange(1 << 24, dtype=torch.float32) / float(1 << 24)
+    check(torch.equal(libm.powf(draws.to(dev), -10.0).cpu().view(torch.int32),
+                      libm.powf(draws, -10.0).view(torch.int32)),
+          "[train] (a) powf card != CPU on the 2^24 draws")
+    steps = torch.arange(10001, dtype=torch.int32)
+    lr_err = 0.0
+    for opt in (topt.OptConfig(),
+                topt.OptConfig(lr=3e-3, warmup_steps=20, total_steps=30)):
+        for b in (opt.b1, opt.b2):
+            check(torch.equal(topt._bias_correction(b, steps.to(dev)).cpu()
+                              .view(torch.int32),
+                              topt._bias_correction(b, steps)
+                              .view(torch.int32)),
+                  f"[train] (a) bias correction card != CPU ({opt})")
+        ulp = float(np.spacing(np.float32(opt.lr)))
+        d = float((topt.schedule(opt, steps.to(dev)).cpu()
+                   - topt.schedule(opt, steps)).abs().max()) / ulp
+        check(d <= 1.0, f"[train] (a) the learning rate card against CPU: "
+                        f"{d} ulps of its peak ({opt})")
+        lr_err = max(lr_err, d)
+    log(f"[train] (a) card == CPU bit for bit: batch_at at vocab 512, 32,768 "
+        f"and 151,936 (16 steps of 8 x 512 each), powf on all 2^24 draws "
+        f"of u, both bias corrections over steps 0-10,000 (two "
+        f"OptConfigs); the learning rate within {lr_err:g} ulps of its "
+        f"peak (tolerance 1)")
+
+
+def train_archs(dev):
+    """[train] (a): every arch at ``reduced()``, f32 and bf16, B, S = 2,
+    64: one train step on the card against the CPU route on the same
+    params and batch (rwkv at RWKV_SEEDS, and in f32 again with its steps
+    kept in f32); on the card, under deterministic algorithms, the three
+    remat policies bitwise equal and two microbatches against one."""
+    import torch
+
+    from repro_torch import configs, models
+    from repro_torch.models import rwkv
+    from repro_torch.models.modules import tree_leaves
+    t0 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    worst, rwkv_reads, remat_same = {}, [], 0
+    for arch in configs.ARCH_IDS:
+        for dtype in ("float32", "bfloat16"):
+            cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)),
+                                      dtype=dtype)
+            for seed in RWKV_SEEDS if cfg.rwkv else (0,):
+                cpu = models.make_params(
+                    cfg, torch.Generator().manual_seed(seed), "cpu")
+                batch = model_batch(models, cfg, 2, 64, "train", 1 + seed)
+                what = f"[train] (a) {arch} {dtype} seed {seed}"
+                pols = ("full", "dots", "none") if seed == 0 else ("full",)
+                card = {pol: one_step(cfg, cpu, batch, dev, remat_policy=pol)
+                        for pol in pols}
+                want = one_step(cfg, cpu, batch, torch.device("cpu"))
+                r = step_held(card["full"], want, cpu, arch, dtype, what)
+                if seed == 0:
+                    worst[arch, dtype] = r
+                if cfg.rwkv:
+                    rwkv_reads.append((dtype, seed, r))
+                if cfg.rwkv and dtype == "float32":
+                    rwkv.YS_DTYPE = torch.float32
+                    try:
+                        f32_steps = step_held(
+                            one_step(cfg, cpu, batch, dev),
+                            one_step(cfg, cpu, batch, torch.device("cpu")),
+                            cpu, arch, dtype, f"{what}, steps in f32",
+                            rwkv_mode="f32 steps")
+                    finally:
+                        rwkv.YS_DTYPE = torch.bfloat16
+                    rwkv_reads.append(("float32, steps in f32", seed,
+                                       f32_steps))
+                base = train_state(*card["full"][:2])
+                for pol in pols[1:]:
+                    other = train_state(*card[pol][:2])
+                    check(all(torch.equal(other[k], base[k]) for k in base)
+                          and all(torch.equal(card[pol][2][k],
+                                              card["full"][2][k])
+                                  for k in card["full"][2]),
+                          f"{what}: remat {pol!r} differs from 'full'")
+                    remat_same += 1
+                if dtype == "float32" and seed == 0:
+                    two = one_step(cfg, cpu, batch, dev, microbatches=2)
+                    # tests/test_training.py's microbatching criterion
+                    check(abs(float(two[2]["loss"])
+                              / float(card["full"][2]["loss"]) - 1) <= 2e-2,
+                          f"{what}: two microbatches' loss")
+                    for a, b in zip(tree_leaves(two[0]),
+                                    tree_leaves(card["full"][0])):
+                        check(float((a.detach().float() - b.detach().float())
+                                    .abs().max()) <= 3e-2,
+                              f"{what}: two microbatches' params")
+                del card, want
+    torch.use_deterministic_algorithms(False)
+
+    def reads(r):
+        return (f"loss {r['loss']:.3g}, params {r['params']:.3g} of their "
+                f"tolerance, mean error {r['update']:.3g} of the mean move "
+                f"(moved leaves {r['moved']:.3f} of the params), moments "
+                f"max {r['m_max']:.3g} mean {r['m_mean']:.3g} of the leaf's "
+                f"largest, grad norm {r['gnorm']:.3g}")
+    for arch in configs.ARCH_IDS:
+        for dtype in ("float32", "bfloat16"):
+            log(f"[train] (a) {arch} {dtype}: one step at lr {TRAIN_LR:g}, "
+                f"card vs CPU: {reads(worst[arch, dtype])}")
+    for dtype, seed, r in rwkv_reads:
+        log(f"[train] (a) rwkv6-3b {dtype} seed {seed}: {reads(r)}")
+    log(f"[train] (a) tolerances: params rtol = atol = f32 "
+        f"{MODEL_TOL['float32']:g}, bf16 {MODEL_TOL['bfloat16']:g} (rwkv "
+        f"{MODEL_TOL_RWKV['float32']:g} / {MODEL_TOL_RWKV['bfloat16']:g}) "
+        f"+ 2 lr, mean error of the mean move f32 "
+        f"{UPDATE_TOL['float32']:g}, bf16 {UPDATE_TOL['bfloat16']:g}; "
+        f"moments and grad norm f32 {MOMENT_TOL['float32']:g}, bf16 "
+        f"{MOMENT_TOL['bfloat16']:g} with mean < {BF16_MEAN:g}; rwkv "
+        f"{RWKV_TOL}")
+    log(f"[train] (a) remat 'dots' and 'none' bitwise equal to 'full' on "
+        f"the card in {remat_same} of {remat_same} cases; two microbatches "
+        f"within tests/test_training.py's tolerance of one; "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
+def train_full_width(dev):
+    """[train] (b): Qwen1.5-0.5B at full width, bf16 params, f32 moments,
+    remat "full", ``launch.train``'s optimizer defaults: 30 steps of 8 x
+    512 tokens from ``data.batch_at`` under the sync check, the losses
+    finite and falling, ms a step and tokens/s, the peak memory of one
+    step under each policy, the card against the CPU in f32 on 2 x 32
+    tokens.  Returns the closure that profiles 3 of its steps, which the
+    phase calls last."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import configs, models
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.kernels import ops
+    from repro_torch.models.modules import tree_leaves
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train as ttrain
+    t1 = time.perf_counter()
+    cfg = configs.get_config("qwen1.5-0.5b")
+    B, S, STEPS = 8, 512, 30
+    opt = topt.OptConfig(lr=3e-3, warmup_steps=20, total_steps=STEPS)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+
+    def fresh():
+        p = models.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                               dev)
+        return p, topt.init_opt_state(p)
+
+    params, state = fresh()
+    n_params = sum(a.numel() for a in tree_leaves(params))
+    step_fn = ttrain.make_train_step(cfg, ttrain.TrainConfig(
+        remat_policy="full", opt=opt), device=dev)
+    batch_at(dc, 0, device=dev)            # the lookup tables, copied once
+    ops.reset_launches()
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(STEPS + 1)]
+    losses, host = [], []
+    with sync_error():
+        events[0].record()
+        for i in range(STEPS):
+            h0 = time.perf_counter()
+            params, state, met = step_fn(params, state,
+                                         batch_at(dc, i, device=dev))
+            events[i + 1].record()
+            host.append(time.perf_counter() - h0)
+            losses.append(met["loss"])
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"[train] (b) the training path "
+                                    f"launched one of the port's kernels: "
+                                    f"{counts}")
+    losses = [float(x) for x in losses]
+    check(all(np.isfinite(losses))
+          and np.mean(losses[-5:]) < np.mean(losses[:5]) - 0.2,
+          f"[train] (b) losses not finite or not falling: {losses}")
+    step_ms = [events[i].elapsed_time(events[i + 1]) for i in range(STEPS)]
+    med_ms = statistics.median(step_ms[10:])
+    host_ms_ = statistics.median(host[10:]) * 1e3
+    bound_ms, tflop = train_bound_ms(cfg, B, S)
+    # peak memory of one step under each policy (steps 31-33)
+    peaks = {}
+    for pol in ("none", "dots", "full"):
+        f = ttrain.make_train_step(cfg, ttrain.TrainConfig(
+            remat_policy=pol, opt=opt), device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        params, state, _ = f(params, state, batch_at(dc, STEPS, device=dev))
+        torch.cuda.synchronize()
+        peaks[pol] = (torch.cuda.max_memory_allocated(), resident)
+    del params, state, met
+    torch.cuda.empty_cache()
+    # the card against the CPU in f32 at full width, 2 x 32 tokens
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    p32 = models.make_params(cfg32, torch.Generator(device=dev).manual_seed(1),
+                             dev)
+    small = batch_at(DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=2),
+                     0, device="cpu")
+    kw = dict(remat_policy="full", opt=opt)
+    card32 = one_step(cfg32, p32, small, dev, **kw)
+    cpu32 = one_step(cfg32, p32, small, torch.device("cpu"), **kw)
+    f32_loss = held(card32[2]["loss"], cpu32[2]["loss"], FULL_F32_TOL,
+                    "[train] (b) f32 full width loss")
+    gs, ws = train_state(*card32[:2]), train_state(*cpu32[:2])
+    # Adam's first step moves an element by lr * g / (|g| + eps): by about
+    # lr either way where g lies within its rounding of 0, so a param may
+    # differ by up to 2 lr there; the moments hold the grads themselves
+    lr1 = float(cpu32[2]["lr"])
+    f32_params, f32_mean = 0.0, 0.0
+    for k in ws:
+        if k.startswith("params/"):
+            d = (gs[k].detach().float().cpu() - ws[k].detach().float()).abs()
+            f32_params = max(f32_params, float(d.max()))
+            f32_mean = max(f32_mean, float(d.mean()))
+    check(f32_params <= 2 * lr1 + FULL_F32_TOL and f32_mean <= 1e-8,
+          f"[train] (b) f32 params: max abs err {f32_params:.4g} (2 lr "
+          f"{2 * lr1:.4g}), mean {f32_mean:.4g}")
+    f32_moments = 0.0
+    for k in ws:
+        if k.startswith("opt/") and k != "opt/step":
+            mx, _ = leaf_err(gs[k], ws[k])
+            check(mx <= MOMENT_TOL["float32"], f"[train] (b) f32 {k}: {mx}")
+            f32_moments = max(f32_moments, mx)
+    del p32, card32, cpu32, gs, ws
+    torch.cuda.empty_cache()
+    log(f"[train] (b) Qwen1.5-0.5B full width ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} heads, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, tied, QKV bias; bf16 params, f32 "
+        f"moments, remat 'full', lr 3e-3, warmup 20): {n_params} params; "
+        f"{STEPS} steps of {B} x {S} tokens under the sync check, launches "
+        f"of the port's kernels {counts}; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (first 5 mean {np.mean(losses[:5]):.4f}, last 5 "
+        f"{np.mean(losses[-5:]):.4f})")
+    log(f"[train] (b) {med_ms:.3f} ms a step (median of steps 11-30, CUDA "
+        f"events), {B * S / med_ms * 1e3:.1f} tokens/s; host {host_ms_:.3f} "
+        f"ms to issue a step; operations bound {bound_ms:.4f} ms ({tflop:.3f} "
+        f"TFLOP: products at 989 TFLOP/s bf16, attention at 67 TFLOP/s f32), "
+        f"{med_ms / bound_ms:.1f} times it; steps {[round(x, 1) for x in step_ms]}")
+    log("[train] (b) peak memory of one step: " + ", ".join(
+        f"{pol} {peak / 2**30:.3f} GiB ({(peak - res) / 2**30:.3f} above the "
+        f"{res / 2**30:.3f} GiB resident)" for pol, (peak, res) in peaks.items()))
+    log(f"[train] (b) f32 full width, one step on 2 x 32 tokens, card vs "
+        f"CPU: loss err {f32_loss:.3g} (tol {FULL_F32_TOL:g}), params max "
+        f"{f32_params:.3g} (2 lr + {FULL_F32_TOL:g} = "
+        f"{2 * lr1 + FULL_F32_TOL:.3g}) mean {f32_mean:.3g} (1e-8), moments "
+        f"{f32_moments:.3g} of the leaf's largest (tol "
+        f"{MOMENT_TOL['float32']:g}); (b) {time.perf_counter() - t1:.1f} s")
+
+    def profiled():
+        params, state = fresh()
+        for i in range(2):
+            params, state, _ = step_fn(params, state,
+                                       batch_at(dc, i, device=dev))
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for i in range(2, 5):
+                params, state, _ = step_fn(params, state,
+                                           batch_at(dc, i, device=dev))
+            torch.cuda.synchronize()
+        events_ = device_events(prof)
+        log(f"[train] (b) profiled steps (3): {len(events_) / 3:.1f} device "
+            f"activities a step, {len({e.name for e in events_})} distinct, "
+            f"idle share {idle_share(events_):.4f}")
+    return profiled
+
+
+def kill_and_resume(ckpt_dir: str) -> tuple:
+    """tests/test_launch.py:66 on the card: ``python -m
+    repro_torch.launch.train`` (reduced Qwen1.5-0.5B, 12 steps, a
+    checkpoint every 4) killed once its first checkpoint lands, then
+    relaunched with ``--resume auto`` to the end; returns the checkpoint
+    before the kill, and the relaunch's exit code and output.  Neither
+    process outlives the call."""
+    import os
+    from repro_torch.checkpoint import ckpt
+    args = [sys.executable, "-m", "repro_torch.launch.train",
+            "--arch", "qwen1.5-0.5b", "--reduced", "--steps", "12",
+            "--global-batch", "4", "--seq-len", "32",
+            "--ckpt-dir", ckpt_dir, "--ckpt-every", "4",
+            "--resume", "auto", "--log-every", "2"]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    p = subprocess.Popen(args, env=env, cwd=ROOT, stdout=subprocess.DEVNULL,
+                         stderr=subprocess.DEVNULL)
+    try:
+        deadline = time.time() + 300
+        while time.time() < deadline and p.poll() is None \
+                and ckpt.latest_step(ckpt_dir) is None:
+            time.sleep(0.2)
+    finally:
+        p.kill()
+        p.wait()
+    first = ckpt.latest_step(ckpt_dir)
+    r = subprocess.run(args, env=env, cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+    return first, r.returncode, r.stdout + r.stderr
+
+
+def train_resume(dev, tmp, killed):
+    """[train] (c): the result of ``kill_and_resume`` (``killed``: its
+    checkpoint directory, result and seconds), then in one process 8
+    steps + checkpoint + restore + 4 steps bitwise equal to 12 steps
+    under deterministic algorithms."""
+    import os
+    import torch
+
+    from repro_torch import configs, models
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train as ttrain
+    t2 = time.perf_counter()
+    d = killed["dir"]
+    first, rc, out = killed["run"]
+    check(first is not None and first >= 4,
+          f"[train] (c) no checkpoint before the kill ({first})")
+    check(rc == 0, f"[train] (c) relaunch exited {rc}: {out}")
+    check("resumed from step" in out and ckpt.latest_step(d) == 12,
+          f"[train] (c) relaunch did not resume to step 12: {out}")
+    resumed_line = next(x for x in out.splitlines()
+                        if "resumed from step" in x)
+    # in one process, under deterministic algorithms
+    torch.use_deterministic_algorithms(True)
+    rcfg = configs.reduced(configs.get_config("qwen1.5-0.5b"))
+    rdc = DataConfig(vocab=rcfg.vocab, seq_len=32, global_batch=4)
+    ropt = topt.OptConfig(lr=3e-3, warmup_steps=20, total_steps=12)
+    rstep = ttrain.make_train_step(rcfg, ttrain.TrainConfig(opt=ropt),
+                                   device=dev)
+
+    def start():
+        p_ = models.make_params(rcfg, torch.Generator().manual_seed(0),
+                                dev)
+        return p_, topt.init_opt_state(p_)
+
+    def run(p_, s_, steps):
+        for i in steps:
+            p_, s_, m_ = rstep(p_, s_, batch_at(rdc, i, device=dev))
+        return p_, s_, m_
+
+    p_a, s_a, m_a = run(*start(), range(12))
+    p_b, s_b, _ = run(*start(), range(8))
+    ckpt.save(os.path.join(tmp, "inproc"), 8, {"params": p_b, "opt": s_b})
+    back = ckpt.restore(os.path.join(tmp, "inproc"), 8,
+                        {"params": p_b, "opt": s_b}, dev)
+    del p_b, s_b
+    p_b, s_b, m_b = run(back["params"], back["opt"], range(8, 12))
+    torch.use_deterministic_algorithms(False)
+    a_, b_ = train_state(p_a, s_a), train_state(p_b, s_b)
+    same = [k for k in a_ if torch.equal(a_[k], b_[k])]
+    check(len(same) == len(a_) and float(m_a["loss"]) == float(m_b["loss"]),
+          f"[train] (c) resumed != uninterrupted in "
+          f"{sorted(set(a_) - set(same))}")
+    log(f"[train] (c) killed after its step-{first} checkpoint, "
+        f"relaunched: '{resumed_line}', ended at step "
+        f"{ckpt.latest_step(d)}; in one process 8 steps + checkpoint + "
+        f"restore + 4 steps == 12 steps bitwise in {len(same)} of "
+        f"{len(a_)} leaves (deterministic algorithms), last loss "
+        f"{float(m_b['loss']):.6f}; the launcher's two processes "
+        f"{killed['s']:.1f} s (beside (a)), the rest "
+        f"{time.perf_counter() - t2:.1f} s")
+
+
+# train_100m's steps in [train] (d): its settings run 300, but at about
+# 0.41 s a step on the card (host-bound) they would take the script past
+# its time limit; 100 still log five times and write its first checkpoint
+STEPS_100M = 100
+
+
+def train_example(tmp):
+    """[train] (d): ``repro_torch.train_100m`` at its settings but
+    ``STEPS_100M`` steps: its loss falls; ms a step from its logged
+    tokens/s."""
+    import contextlib
+    import io
+    import math
+    import os
+    import re
+
+    import numpy as np
+
+    from repro_torch import configs, models, train_100m
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.launch import train as launch
+    from repro_torch.models.modules import tree_leaves
+    t3 = time.perf_counter()
+    configs.REGISTRY[train_100m.CONFIG.name] = train_100m.CONFIG
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        final = launch.main(train_100m.argv(STEPS_100M,
+                                            os.path.join(tmp, "100m")))
+    wall = time.perf_counter() - t3
+    lines = [x for x in out.getvalue().splitlines() if x.startswith("step ")]
+    for x in lines:
+        log(f"[train] (d) {x}")
+    logged = [(int(m.group(1)), float(m.group(2)), float(m.group(3)))
+              for m in (re.match(r"step (\d+): loss=([0-9.]+) .*tok/s=(\d+)",
+                                 x) for x in lines)]
+    check(len(logged) >= 2 and np.isfinite(final)
+          and logged[-1][1] < logged[0][1] - 1.0,
+          f"[train] (d) train_100m's loss did not fall: {lines}")
+    saved = ckpt.latest_step(os.path.join(tmp, "100m"))
+    check(saved == STEPS_100M, f"[train] (d) its checkpoint is at {saved}")
+    tok_s = statistics.median(t for _, _, t in logged[2:])
+    n100 = sum(math.prod(s.shape) for s in tree_leaves(
+        models.param_specs(train_100m.CONFIG)))
+    log(f"[train] (d) train_100m (qwen-100m: {n100} params, 16 x 256 "
+        f"tokens, 2 microbatches, lr 1e-3, a checkpoint every 100 steps; "
+        f"{STEPS_100M} of its 300 steps): "
+        f"loss {logged[0][1]:.4f} at step {logged[0][0]} -> "
+        f"{logged[-1][1]:.4f} at step {logged[-1][0]}; "
+        f"{16 * 256 / tok_s * 1e3:.3f} ms a step at the logged median "
+        f"{tok_s:.0f} tokens/s; {STEPS_100M} steps in {wall:.1f} s with its "
+        f"checkpoint at step {saved}")
+
+
+def train_worker() -> int:
+    """[train] in a process of its own (``chip_smoke.py --train-worker``),
+    for the same reason as [model]: its profiled steps must slow no later
+    phase.  Started with ``CUBLAS_WORKSPACE_CONFIG`` set, so that (a) and
+    (c) can ask for deterministic algorithms."""
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    train_phase(torch.device("cuda"))
+    return 0
 
 
 def main() -> int:
@@ -2427,12 +3108,12 @@ def main() -> int:
     torch.cuda.empty_cache()
     err["alloc_scan"], _, alloc_t = alloc_scan_phase(dev)
     err["fast_window"], window_t = fast_window_phase(dev)
-    sim_launches, replays, solo_s = quickstart_phase()
+    sim_launches, replays = quickstart_phase()
     log(f"[9] total wall {time.perf_counter() - t_start:.1f} s")
     held, solo10 = cpu_route_phase()
     log(f"[10] blocked vs per-step f32 timeline keys: {held.count('bitwise')} "
         f"of {len(held)} cases bitwise, the rest to rtol 1e-6")
-    served = service_phase(solo_s, solo10)
+    served = service_phase(solo10)
     log(f"[service] total wall {time.perf_counter() - t_start:.1f} s")
     # the simulator's main paths: [9]'s solo run and
     # [service] (a)'s broker flush
@@ -2448,6 +3129,14 @@ def main() -> int:
                             "--model-worker"], timeout=900)
     check(model.returncode == 0, f"[model] exited {model.returncode}")
     log(f"[model] total wall {time.perf_counter() - t_start:.1f} s")
+    # -- [train] the model stack's training path, in a process of its own
+    import os
+    train = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                            "--train-worker"], timeout=900,
+                           env=dict(os.environ,
+                                    CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    check(train.returncode == 0, f"[train] exited {train.returncode}")
+    log(f"[train] total wall {time.perf_counter() - t_start:.1f} s")
     left = live_children()
     check(not left, f"processes this script started are still running: {left}")
 
@@ -2486,4 +3175,6 @@ if __name__ == "__main__":
         sys.exit(cpu_route_worker(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--model-worker"]:
         sys.exit(model_worker())
+    if sys.argv[1:2] == ["--train-worker"]:
+        sys.exit(train_worker())
     sys.exit(main())

@@ -1,2 +1,4 @@
-"""Launch-layer helpers (twin of the JAX package's ``launch``): so far
-``analysis`` (analytic step FLOPs, the policy-sweep summary)."""
+"""Launch layer (twin of the JAX package's ``launch``): ``analysis``
+(analytic step FLOPs, the policy-sweep summary) and ``train`` (the
+training launcher); the mesh and the dry run wait for the distributed
+slice."""

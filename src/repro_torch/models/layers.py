@@ -19,9 +19,13 @@ stay in the operands' dtype.
 """
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from .modules import remat
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -107,14 +111,53 @@ def sinusoidal_positions(seq_len: int, d_model: int, device=None):
 # --------------------------------------------------------------------------
 # attention
 # --------------------------------------------------------------------------
+def _kv_step(i: int, j: int, causal: bool, scale: float, q_blk, k_blk,
+             v_blk, m, l, acc):
+    """One kv chunk of the online softmax: q_blk [B, Cq, KH, G, Dh] (f32),
+    k_blk / v_blk [B, Ck, KH, Dh]; returns the new (m, l, acc)."""
+    s = torch.einsum("bqkgd,bckd->bqkgc", q_blk,
+                     k_blk.to(F32)) * scale               # [B,Cq,KH,G,Ck]
+    if causal:
+        dev = q_blk.device
+        qpos = i * q_blk.shape[1] + torch.arange(q_blk.shape[1], device=dev)
+        kpos = j * k_blk.shape[1] + torch.arange(k_blk.shape[1], device=dev)
+        mask = qpos[:, None] >= kpos[None, :]
+        s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
+    m_new = torch.maximum(m, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m - m_new)
+    l = l * corr + p.sum(dim=-1)
+    acc = acc * corr[..., None] + torch.einsum(
+        "bqkgc,bckd->bqkgd", p.to(v_blk.dtype).to(F32), v_blk.to(F32))
+    return m_new, l, acc
+
+
+def _q_step(i: int, causal: bool, q_blk, kr, vr):
+    """All kv chunks for q chunk ``i`` (q_blk [B, Cq, KH, G, Dh]); each kv
+    step rematerialized, as the reference's."""
+    B, Cq, KH, G, Dh = q_blk.shape
+    dev = q_blk.device
+    scale = _softmax_scale(Dh)
+    q_blk = q_blk.to(F32)
+    m = torch.full((B, Cq, KH, G), NEG_INF, dtype=F32, device=dev)
+    l = torch.zeros((B, Cq, KH, G), dtype=F32, device=dev)
+    acc = torch.zeros((B, Cq, KH, G, Dh), dtype=F32, device=dev)
+    for j in range(kr.shape[1]):
+        m, l, acc = remat(functools.partial(_kv_step, i, j, causal, scale),
+                          q_blk, kr[:, j], vr[:, j], m, l, acc)
+    return acc / torch.clamp(l[..., None], min=1e-30)
+
+
 def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
                       kv_chunk: int = 512):
     """Flash-style online-softmax attention.
 
     q: [B, S, H, Dh]; k, v: [B, S, KH, Dh] with H a multiple of KH (GQA).
     Returns [B, S, H, Dh].  A Python loop over q chunks and, inside it,
-    kv chunks takes the place of the reference's two ``lax.scan``s (its
-    remat only matters under autograd).
+    kv chunks takes the place of the reference's two ``lax.scan``s; under
+    autograd both bodies are rematerialized, as the reference's "double
+    remat" (the backward keeps only each step's inputs, never the
+    [Cq, Ck] probabilities of every chunk pair).
     """
     B, S, H, Dh = q.shape
     KH = k.shape[2]
@@ -125,37 +168,11 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
         raise ValueError(f"S={S} is not a multiple of the chunks "
                          f"({q_chunk}, {kv_chunk})")
     nq, nk = S // q_chunk, S // kv_chunk
-    dev = q.device
-
-    scale = _softmax_scale(Dh)
     qr = q.reshape(B, nq, q_chunk, KH, G, Dh)
     kr = k.reshape(B, nk, kv_chunk, KH, Dh)
     vr = v.reshape(B, nk, kv_chunk, KH, Dh)
-    outs = []
-    for i in range(nq):
-        q_blk = qr[:, i].to(F32)                          # [B, Cq, KH, G, Dh]
-        m = torch.full((B, q_chunk, KH, G), NEG_INF, dtype=F32, device=dev)
-        l = torch.zeros((B, q_chunk, KH, G), dtype=F32, device=dev)
-        acc = torch.zeros((B, q_chunk, KH, G, Dh), dtype=F32, device=dev)
-        for j in range(nk):
-            k_blk, v_blk = kr[:, j], vr[:, j]
-            s = torch.einsum("bqkgd,bckd->bqkgc", q_blk,
-                             k_blk.to(F32)) * scale       # [B,Cq,KH,G,Ck]
-            if causal:
-                qpos = i * q_chunk + torch.arange(q_chunk, device=dev)
-                kpos = j * kv_chunk + torch.arange(kv_chunk, device=dev)
-                mask = qpos[:, None] >= kpos[None, :]
-                s = torch.where(mask[None, :, None, None, :], s, NEG_INF)
-            m_new = torch.maximum(m, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m - m_new)
-            l = l * corr + p.sum(dim=-1)
-            acc = acc * corr[..., None] + torch.einsum(
-                "bqkgc,bckd->bqkgd", p.to(v_blk.dtype).to(F32),
-                v_blk.to(F32))
-            m = m_new
-        out = acc / torch.clamp(l[..., None], min=1e-30)
-        outs.append(out.to(q.dtype))
+    outs = [remat(functools.partial(_q_step, i, causal), qr[:, i], kr, vr)
+            .to(q.dtype) for i in range(nq)]
     return torch.stack(outs, dim=1).reshape(B, S, H, Dh)
 
 

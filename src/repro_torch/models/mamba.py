@@ -16,7 +16,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from .modules import ParamSpec
+from .modules import ParamSpec, remat
 
 F32 = torch.float32
 
@@ -70,12 +70,33 @@ def causal_conv(xs, conv_w, conv_b):
     return _conv_taps(pad, conv_w, conv_b, xs.shape[1])
 
 
+def _chunk_body(w, h, tail, x_c):
+    """One chunk: x_c [B, chunk, D], carrying (h [B, di, ds] f32, tail
+    [B, K-1, di]); returns (h, tail, out_c [B, chunk, D])."""
+    chunk = x_c.shape[1]
+    xs, z = torch.chunk(x_c @ w["in_proj"], 2, dim=-1)
+    window = torch.cat([tail, xs], dim=1)                 # [B,K-1+chunk,di]
+    conv = _conv_taps(window, w["conv_w"], w["conv_b"], chunk)
+    dt, Bs, Cs, A = _selective(w, conv)
+    conv32 = conv.to(F32)
+    dA = torch.exp(dt[..., None] * A)                     # [B,chunk,di,ds]
+    dBx = dt[..., None] * Bs[:, :, None, :] * conv32[..., None]
+    ys = []
+    for t in range(chunk):
+        h = dA[:, t] * h + dBx[:, t]
+        ys.append(torch.einsum("bis,bs->bi", h, Cs[:, t]).to(x_c.dtype))
+    y = torch.stack(ys, dim=1).to(F32)                    # [B,chunk,di]
+    y = (y + w["D"] * conv32) * F.silu(z.to(F32))
+    return h, window[:, chunk:], y.to(x_c.dtype) @ w["out_proj"]
+
+
 def mamba_apply(w, x, *, chunk: int = 512):
     """Training/prefill forward: x [B, S, D] -> [B, S, D].
 
     The entire layer (projections, conv, selective scan, gating, output
     projection) is chunked over S, carrying the (SSM state, conv tail)
-    pair from chunk to chunk.
+    pair from chunk to chunk; under autograd each chunk body is
+    rematerialized, as the reference's.
     """
     B, S, D = x.shape
     di = w["dt_proj"].shape[1]
@@ -84,28 +105,13 @@ def mamba_apply(w, x, *, chunk: int = 512):
     chunk = min(chunk, S)
     if S % chunk:
         raise ValueError(f"S={S} is not a multiple of chunk {chunk}")
-    A = -torch.exp(w["A_log"])
-
     h = torch.zeros((B, di, d_state), dtype=F32, device=x.device)
     tail = torch.zeros((B, K - 1, di), dtype=x.dtype, device=x.device)
     outs = []
     for c in range(S // chunk):
-        x_c = x[:, c * chunk:(c + 1) * chunk]
-        xs, z = torch.chunk(x_c @ w["in_proj"], 2, dim=-1)
-        window = torch.cat([tail, xs], dim=1)             # [B,K-1+chunk,di]
-        conv = _conv_taps(window, w["conv_w"], w["conv_b"], chunk)
-        dt, Bs, Cs, _ = _selective(w, conv)
-        conv32 = conv.to(F32)
-        dA = torch.exp(dt[..., None] * A)                 # [B,chunk,di,ds]
-        dBx = dt[..., None] * Bs[:, :, None, :] * conv32[..., None]
-        ys = []
-        for t in range(chunk):
-            h = dA[:, t] * h + dBx[:, t]
-            ys.append(torch.einsum("bis,bs->bi", h, Cs[:, t]).to(x.dtype))
-        y = torch.stack(ys, dim=1).to(F32)                # [B,chunk,di]
-        y = (y + w["D"] * conv32) * F.silu(z.to(F32))
-        outs.append(y.to(x.dtype) @ w["out_proj"])
-        tail = window[:, chunk:]
+        h, tail, out = remat(_chunk_body, w, h, tail,
+                             x[:, c * chunk:(c + 1) * chunk])
+        outs.append(out)
     return torch.cat(outs, dim=1)
 
 

@@ -26,11 +26,10 @@ import torch
 from ..configs.base import ArchConfig, torch_dtype
 from ..device import resolve_device
 from . import layers, mamba as mamba_mod, moe as moe_mod, rwkv as rwkv_mod
-from .modules import (ParamSpec, abstract_params, init_params, tree_leaves,
-                      tree_map)
+from .modules import (REMAT_POLICIES, ParamSpec, abstract_params,
+                      init_params, remat, tree_leaves, tree_map)
 
 F32 = torch.float32
-REMAT_POLICIES = ("full", "dots", "none")
 
 
 # ---------------------------------------------------------------------------
@@ -172,13 +171,22 @@ def param_specs(cfg: ArchConfig) -> Dict:
     return specs
 
 
-def _n_groups(params) -> int:
-    return tree_leaves(params["layers"])[0].shape[0]
+def _n_groups(layers) -> int:
+    return tree_leaves(layers)[0].shape[0]
 
 
 def _group(tree, g: int):
     """Group ``g``'s views of a tree of stacked tensors."""
     return tree_map(lambda a: a[g], tree)
+
+
+def _groups(tree) -> List[Dict]:
+    """Every group's views of a tree of stacked tensors, through one
+    ``unbind`` per leaf (whose backward stacks the groups' grads once,
+    where indexing would add a full-size zero tensor per group)."""
+    parts = tree_map(lambda a: a.unbind(0), tree)
+    return [tree_map(lambda t: t[g], parts)
+            for g in range(_n_groups(tree))]
 
 
 # ---------------------------------------------------------------------------
@@ -264,9 +272,12 @@ def _embed(cfg: ArchConfig, params, batch):
     return x, mrope_pos
 
 
+def _head(cfg, params):
+    return params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+
 def _logits_chunk(cfg, params, h):
-    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return h @ head
+    return h @ _head(cfg, params)
 
 
 def forward(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
@@ -275,9 +286,11 @@ def forward(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
 
     ``kv_caches``: one (k, v) pair per attention position of the period,
     each [G, B, S, KH, Dh] (empty unless ``collect_kv``).
-    ``remat_policy`` takes the reference's values ("full", "dots",
-    "none"); it chooses what autograd keeps and matters only under
-    autograd, so the serving path ignores it once it is checked.
+    ``remat_policy`` ("full", "dots", "none", the reference's) chooses
+    what autograd keeps of each layer group for the backward pass
+    (``modules.remat``): "full" the group's input only, "dots" also its
+    products with no batch dims, "none" everything.  The values do not
+    depend on it, and without autograd it costs nothing.
     ``act_constraint``: optional fn applied to the [B,S,D] residual stream
     at every group boundary.
     """
@@ -290,10 +303,14 @@ def forward(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
     positions = torch.arange(S, dtype=torch.int32, device=x.device)[None, :]
     if act_constraint is not None:
         x = act_constraint(x)
+
+    def group_fn(gparams, x):
+        return _apply_group_full(cfg, kinds, gparams, x, positions,
+                                 mrope_pos, collect_kv)
+
     auxs, kvs = [], []
-    for g in range(_n_groups(params)):
-        x, aux, kv = _apply_group_full(cfg, kinds, _group(params["layers"], g),
-                                       x, positions, mrope_pos, collect_kv)
+    for gparams in _groups(params["layers"]):
+        x, aux, kv = remat(group_fn, gparams, x, policy=remat_policy)
         if act_constraint is not None:
             x = act_constraint(x)
         auxs.append(aux)
@@ -305,11 +322,21 @@ def forward(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
     return x, torch.stack(auxs).sum(), stacked
 
 
+def _loss_chunk(head, hc, tc):
+    """Summed cross entropy of one chunk: hc [B, C, D], tc [B, C]."""
+    logits = (hc @ head).to(F32)
+    lse = torch.logsumexp(logits, dim=-1)
+    picked = torch.gather(logits, -1, tc[..., None].long())[..., 0]
+    return (lse - picked).sum()
+
+
 def lm_loss(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
             loss_chunk: int = 512, aux_weight: float = 0.01,
             act_constraint=None):
-    """Next-token (or frame-target) cross entropy, chunked over S (its
-    value; the backward pass comes with the training port)."""
+    """Next-token (or frame-target) cross entropy, chunked over S.  Under
+    autograd the layer groups follow ``remat_policy`` (see ``forward``)
+    and each loss chunk is rematerialized, as the reference's (its
+    [B, chunk, V] logits are never kept for the backward pass)."""
     h, aux, _ = forward(cfg, params, batch, remat_policy=remat_policy,
                         act_constraint=act_constraint)
     targets = batch["targets"]
@@ -318,13 +345,11 @@ def lm_loss(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
     B, S, D = h.shape
     loss_chunk = min(loss_chunk, S)
     nc = S // loss_chunk
+    head = _head(cfg, params)
     total = torch.zeros((), dtype=F32, device=h.device)
     for c in range(nc):
         sl = slice(c * loss_chunk, (c + 1) * loss_chunk)
-        logits = _logits_chunk(cfg, params, h[:, sl]).to(F32)
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1, targets[:, sl, None].long())[..., 0]
-        total = total + (lse - picked).sum()
+        total = total + remat(_loss_chunk, head, h[:, sl], targets[:, sl])
     return total / (B * nc * loss_chunk) + aux_weight * aux
 
 
@@ -425,7 +450,7 @@ def decode_step(cfg: ArchConfig, params, state: Dict, tokens,
         posv = pos.expand(B)[:, None]                    # [B, 1]
         length = (pos + 1).expand(B)
 
-    for g in range(_n_groups(params)):
+    for g in range(_n_groups(params["layers"])):
         gparams = _group(params["layers"], g)
         for i, (mixer, ffn) in enumerate(kinds):
             p = gparams[f"pos{i}"]

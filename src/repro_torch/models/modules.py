@@ -9,15 +9,20 @@ declaration we derive:
     no storage: PyTorch's ``ShapeDtypeStruct``), for 340B-parameter
     configs,
   * ``init_params``      — real tensors from a ``torch.Generator``,
-  * ``logical_axes_tree`` / ``count_params``.
+  * ``logical_axes_tree`` / ``count_params``,
+
+and ``remat``, the reference's ``jax.remat`` under autograd.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..configs.base import torch_dtype
 from ..device import resolve_device
@@ -87,3 +92,45 @@ def logical_axes_tree(specs):
 
 def count_params(specs) -> int:
     return sum(math.prod(s.shape) for s in tree_leaves(specs))
+
+
+REMAT_POLICIES = ("full", "dots", "none")
+# the products with no batch dims: what
+# jax.checkpoint_policies.dots_with_no_batch_dims_saveable keeps
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _needs_grad(tree) -> bool:
+    if isinstance(tree, torch.Tensor):
+        return tree.requires_grad
+    if isinstance(tree, dict):
+        return any(_needs_grad(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return any(_needs_grad(v) for v in tree)
+    return False
+
+
+def remat(fn: Callable, *args, policy: str = "full"):
+    """``fn(*args)``, keeping for the backward pass what ``policy`` says
+    (the reference's ``jax.remat`` / ``jax.checkpoint`` policies):
+    "full" only ``args`` (``fn`` runs again in the backward pass), "dots"
+    also the outputs of products with no batch dims (``aten.mm`` /
+    ``aten.addmm``), "none" everything.  Values do not depend on the
+    policy.  Every tensor ``fn`` differentiates must be in ``args``
+    (nested in dicts, lists or tuples); without grad mode, or with no
+    such tensor requiring grad, ``fn`` simply runs."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {policy!r} not in {REMAT_POLICIES}")
+    if policy == "none" or not (torch.is_grad_enabled() and _needs_grad(args)):
+        return fn(*args)
+    kw = {}
+    if policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_saveable)
+    return checkpoint(fn, *args, use_reentrant=False,
+                      preserve_rng_state=False, **kw)

@@ -17,7 +17,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from .modules import ParamSpec
+from .modules import ParamSpec, remat
 
 F32 = torch.float32
 HEAD = 64  # RWKV6 fixed head size
@@ -99,9 +99,22 @@ def _group_norm_out(w, y, g, dtype):
     return y.to(dtype) @ w["w_o"]
 
 
+def _chunk_body(u, st, rh, kh, vh, wh):
+    """One chunk of steps: r/k/v/decay [B, chunk, H, 64] (f32), the state
+    st [B, H, 64, 64]; returns (st, ys [B, chunk, H, 64] in YS_DTYPE)."""
+    ys = []
+    for t in range(rh.shape[1]):
+        kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]  # [B,H,64,64]
+        y = torch.einsum("bhk,bhkv->bhv", rh[:, t], st + u[..., :, None] * kv)
+        st = wh[:, t, :, :, None] * st + kv
+        ys.append(y.to(YS_DTYPE))
+    return st, torch.stack(ys, dim=1)
+
+
 def time_mix_apply(w, x, *, chunk: int = 256):
     """x: [B, S, D] -> [B, S, D] (training / prefill).  ``chunk`` is the
-    reference's scan chunk; S must be a multiple of it (or smaller)."""
+    reference's scan chunk (S must be a multiple of it, or smaller); under
+    autograd each chunk of steps is rematerialized, as the reference's."""
     B, S, D = x.shape
     H = D // HEAD
     r, k, v, g, decay = _mix_inputs(w, x, _shift(x))
@@ -116,12 +129,12 @@ def time_mix_apply(w, x, *, chunk: int = 256):
     u = w["bonus_u"].reshape(H, HEAD)
     st = torch.zeros((B, H, HEAD, HEAD), dtype=F32, device=x.device)
     ys = []
-    for t in range(S):
-        kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]  # [B,H,64,64]
-        y = torch.einsum("bhk,bhkv->bhv", rh[:, t], st + u[..., :, None] * kv)
-        st = wh[:, t, :, :, None] * st + kv
-        ys.append(y.to(YS_DTYPE))
-    y = torch.stack(ys, dim=1).to(F32)                    # [B,S,H,64]
+    for c in range(S // chunk):
+        sl = slice(c * chunk, (c + 1) * chunk)
+        st, y = remat(_chunk_body, u, st, rh[:, sl], kh[:, sl], vh[:, sl],
+                      wh[:, sl])
+        ys.append(y)
+    y = torch.cat(ys, dim=1).to(F32)                      # [B,S,H,64]
     return _group_norm_out(w, y, g, x.dtype)
 
 

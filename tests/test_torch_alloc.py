@@ -19,6 +19,7 @@ from repro.core import alloc as jalloc
 import repro_torch.core as tc
 from repro_torch.core import alloc as talloc
 from repro_torch.kernels import ops, ref
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 MACHINES = {
     "2-tier": lambda m: m.MachineConfig(n_threads=16),

@@ -23,6 +23,7 @@ from test_blocked import (POLICIES, fault_heavy_trace, make_trace,
 from test_ntier import CYCLE_KEYS, EXACT_KEYS
 from test_torch_engine import to_port, tsim_fields
 from test_torch_engine_jax import assert_same_run
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 
 def port_blocked(mc, pc, block=16, **kw):

@@ -22,6 +22,7 @@ from repro_torch.launch.analysis import model_flops
 from repro_torch.models.modules import tree_leaves, tree_map
 
 import test_torch_service as tsvc
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 
 def test_registry_matches_the_reference_field_for_field():

@@ -27,6 +27,20 @@ from test_ntier import (CYCLE_KEYS, EXACT_KEYS, FAMILY_POLICIES, TIER3,
                         tiny_machine as ntier_machine)
 
 
+@pytest.fixture(scope="module", autouse=True)
+def fresh_jax_caches():
+    """JAX's compiled programs dropped as the module starts and as it ends
+    (the port's test modules that run the JAX package import this
+    fixture).  XLA:CPU keeps each compiled program's code mapped while
+    JAX's caches hold it, and an xdist worker that gathers them across
+    modules reaches Linux's limit of memory mappings and dies in its next
+    compile."""
+    import jax
+    jax.clear_caches()
+    yield
+    jax.clear_caches()
+
+
 def _pressure_machine():
     return jc.MachineConfig(n_threads=4, dram_pages_per_node=200,
                             nvmm_pages_per_node=1600, va_pages=1 << 11,

@@ -12,6 +12,7 @@ import repro.core as jc
 from test_torch_engine import (CASE_NAMES, case, port_run, port_sim,
                                to_port, tsim_fields,
                                unique_commits)  # noqa: F401
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 
 def assert_same_run(jax_res, port_res, label):

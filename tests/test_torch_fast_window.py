@@ -33,6 +33,7 @@ from repro_torch.kernels import ops, ref
 
 from test_blocked import tiny_machine
 from test_torch_engine import to_port, tsim_fields
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 MACHINES = {f"{fn}(thp={thp})": (fn, thp)
             for fn in ("benchmark_machine", "cxl_machine")

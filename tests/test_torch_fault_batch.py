@@ -20,6 +20,7 @@ from test_fault_batch import (CYCLE_KEYS, EXACT_KEYS, POLICIES,
                               tiny_machine)
 from test_torch_blocked import assert_bitwise, port_blocked
 from test_torch_engine import to_port
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 
 def port_sim(mc, pc, phase_b):

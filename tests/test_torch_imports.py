@@ -24,6 +24,9 @@ OBS = submodules("obs")
 SERVICE = submodules("service")
 CONFIGS = submodules("configs")
 MODELS = submodules("models")
+TRAINING = submodules("data") + submodules("training") \
+    + submodules("checkpoint") + ["repro_torch.launch.train",
+                                  "repro_torch.libm", "repro_torch.train_100m"]
 MODULES = ["repro_torch", "repro_torch.kernels.ops", "repro_torch.kernels.build",
            "repro_torch.kernels.paged_attention",
            "repro_torch.kernels.alloc_scan", "repro_torch.kernels.fast_window",
@@ -34,9 +37,10 @@ MODULES = ["repro_torch", "repro_torch.kernels.ops", "repro_torch.kernels.build"
            "repro_torch.quickstart", "repro_torch.obs",
            "repro_torch.service", "repro_torch.models",
            "repro_torch.launch.analysis"] + CORE + OBS + SERVICE + CONFIGS \
-    + MODELS
-FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
-                       re.MULTILINE)
+    + MODELS + TRAINING
+FORBIDDEN = re.compile(
+    r"^\s*(import|from)\s+(jax|jaxlib|repro|ml_dtypes)(\.|\s|$)",
+    re.MULTILINE)
 
 
 def test_no_source_imports_jax_or_repro():
@@ -101,11 +105,39 @@ def test_configs_and_models_modules_are_all_checked():
         assert public and not missing, (pkg, missing)
 
 
+# what of the reference's training modules needs a mesh, and so waits for
+# the distributed slice (ROADMAP.md queue 1, item 13)
+MESH_ONLY = {"batch_constraint", "seq_constraint", "compressed_psum",
+             "make_compressed_train_step"}
+
+
+def test_training_modules_are_all_checked():
+    """Every module of the reference's ``data``, ``training`` and
+    ``checkpoint`` and its ``launch/train.py`` has its twin with the
+    reference's top-level names (the mesh-only ones aside), and the
+    import check covers each."""
+    ref = SRC / "repro"
+    for pkg in ("data", "training", "checkpoint"):
+        want = sorted(f"repro_torch.{pkg}.{f.stem}"
+                      for f in (ref / pkg).glob("*.py") if f.stem != "__init__")
+        assert submodules(pkg) == want and set(want) <= set(MODULES)
+    for rel in ("data/pipeline.py", "training/optimizer.py",
+                "training/train.py", "checkpoint/ckpt.py", "launch/train.py"):
+        tree = ast.parse((ref / rel).read_text())
+        names = {n.name for n in tree.body
+                 if isinstance(n, (ast.FunctionDef, ast.ClassDef))} - MESH_ONLY
+        mod = importlib.import_module(
+            "repro_torch." + rel[:-3].replace("/", "."))
+        missing = sorted(n for n in names if not hasattr(mod, n))
+        assert names and not missing, (rel, missing)
+        assert not MESH_ONLY & set(vars(mod)), rel
+
+
 def test_import_leaves_jax_out():
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
             + "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-              "('jax', 'jaxlib', 'repro'))\n"
+              "('jax', 'jaxlib', 'repro', 'ml_dtypes'))\n"
               "assert not bad, bad\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
                          capture_output=True, text=True, timeout=120)

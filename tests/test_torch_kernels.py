@@ -18,6 +18,7 @@ from repro.kernels import ref as jref
 from repro.kernels.block_copy import block_copy_kernel
 from repro.kernels.pt_walk import pt_walk_kernel
 from repro_torch.kernels import ops
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 
 def to_torch(a):

@@ -36,6 +36,7 @@ from repro.models import layers as jl, mamba as jmb, moe as jmoe, \
 from repro_torch.models import layers as tl, mamba as tmb, moe as tmoe, \
     rwkv as trw, modules as tmod
 from repro_torch.models.model import store_cast
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 F32_EW, F32_SUM = 1e-6, 1e-5
 DTYPES = {"float32": (jnp.float32, torch.float32),

@@ -18,6 +18,7 @@ import torch
 
 from repro.memsys import tiered_kv as jtkv
 from repro_torch.memsys import tiered_kv as tkv
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 G, KH, DH, BS = 2, 2, 8, 4
 MAXB = 64

@@ -24,6 +24,7 @@ from repro import models as jm
 from repro_torch import configs, models
 
 import test_models as ref
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 F32_TOL = 1e-4
 F32_TOL_RWKV = 1e-3

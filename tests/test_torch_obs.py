@@ -57,6 +57,7 @@ from test_torch_blocked import assert_bitwise
 from test_torch_service import (MIXED_POLICIES, port, port_history,
                                 random_trace, tiny_machine)
 from test_torch_service import broker as SimBroker
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 assert port_history                      # autouse: the port's history to tmp
 

@@ -23,6 +23,7 @@ from repro.kernels import ref as jref
 from repro.kernels.paged_attention import paged_attention_kernel
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels import paged_attention as pa
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 TOL = {jnp.float32: 1e-5, jnp.bfloat16: 2e-2, jnp.float16: 1e-2}
 

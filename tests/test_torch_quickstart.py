@@ -16,6 +16,7 @@ import numpy as np
 import repro.core as jc
 from repro_torch import quickstart as tq
 from repro_torch.core import workloads as tw
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 
 def jax_golden() -> dict:

@@ -42,6 +42,7 @@ import test_service as ref
 from test_torch_blocked import assert_bitwise
 from test_torch_engine import to_port
 from test_torch_engine_jax import assert_same_run
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 SRC = ROOT / "src"

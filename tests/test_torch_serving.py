@@ -20,6 +20,7 @@ from repro_torch.kernels import ops
 from repro_torch.memsys import tiered_kv as tkv
 from repro_torch.serving import serve_tiered as st
 from repro_torch.serving.engine import Request, TieredServingEngine
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 GEO = configs.REDUCED            # Qwen1.5-0.5B at configs.reduced width
 

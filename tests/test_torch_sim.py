@@ -22,6 +22,7 @@ import repro_torch.core as tc
 from repro_torch.core import migrate as tmig
 from repro_torch.core import sim as tsim
 from repro_torch.core import tlbs as ttlbs
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 MACHINES = [
     lambda m: m.MachineConfig(),

@@ -21,6 +21,7 @@ from test_blocked import CYCLE_KEYS, EXACT_KEYS, steady_trace, tiny_machine
 from test_split_windows import quiet_masks
 from test_torch_blocked import assert_bitwise, port_blocked, port_per_step
 from test_torch_engine import to_port
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 PLAN_FIELDS = ("geom", "kind", "seg_a", "seg_b", "emit_valid", "rows_in",
                "block", "counts")

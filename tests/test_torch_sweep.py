@@ -32,6 +32,7 @@ from test_sweep import (POLICIES, assert_lane_matches_oracle, random_trace,
 from test_torch_blocked import assert_bitwise
 from test_torch_engine import to_port
 from test_torch_engine_jax import assert_same_run
+from test_torch_engine import fresh_jax_caches  # noqa: F401 (autouse)
 
 
 def port(obj):
