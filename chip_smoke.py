@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's tiered paged-KV server, its paged decode
-attention, its model stack's serving and training paths, its
+attention, its model stack's serving and training paths (on one device
+and on a mesh), its
 tiered-memory simulator (the time-blocked engine, and the per-step engine
 and the sequential fault path beside it) and the simulation service over
 it on one NVIDIA GPU.
@@ -92,16 +93,18 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    exact, its f32 keys bitwise or else to rtol 1e-6, and which held is
    printed) and against the port's own CPU route (worker processes, each
    waited for; the script checks that it leaves no child running), field
-   for field over the final state and the timeline, at footprint 2^13 and
-   512 run steps: tests/test_core_oracle.py's six policies on
+   for field over the final state and the timeline, at footprint 2^12 and
+   384 run steps: tests/test_core_oracle.py's six policies on
    ``benchmark_machine()``, ``tpp()`` and ``nomad()`` on ``cxl_machine()``;
    then sweeps at that size, each lane bitwise against its solo blocked
    run (the loop under the sync check, ``alloc_scan`` launches == the
    steps where a lane faults, ``fast_window`` launches == the plan's fast
    segments): the six policies as one 6-lane sweep, ``tpp()`` and
-   ``nomad()`` as one 2-lane sweep, the quickstart's two policies as one
-   2-lane sweep (whole fast windows), then again through ``sweep_lanes``
-   and, BHi+Mig alone, ``TieredMemSimulator`` with a tracing
+   ``nomad()`` as one 2-lane sweep and again with ``lane_sharding="auto"``
+   (the lane mesh of the one card, run as a mesh: bitwise against the
+   unsharded sweep, its launches the same), the quickstart's two
+   policies as one 2-lane sweep (whole fast windows), then again through
+   ``sweep_lanes`` and, BHi+Mig alone, ``TieredMemSimulator`` with a tracing
    ``Telemetry``, each against the same call without one (the same
    results bitwise, the same count of synchronising device operations
    under ``set_sync_debug_mode("warn")``, the window counters == the
@@ -132,9 +135,10 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    (``PoisonedQueryError``), the other five bitwise against [10]'s solo
    runs;
 [steady] the steady-state trace of benchmarks/steady_state.py under Linux
-   first-touch and BHi+Mig at ``autonuma_period`` 512: the blocked and the
-   per-step engine's wall clock and steps/s, the two held equal as in
-   [10], and over the run phase of a third blocked run (profiler; its
+   first-touch and BHi+Mig at ``autonuma_period`` 512: the blocked and
+   the per-step engine's wall clock and steps/s, the two held equal as in
+   [10], and over the run phase of
+   a third blocked run (profiler; its
    populate windows run first, unprofiled) device activities per step,
    the device's idle share and ``fast_window``'s device time per launch
    beside an empty kernel and its bytes bound;
@@ -169,8 +173,8 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    1e-3 on the card against the CPU route on the same params and batch
    (loss, grad norm, every param, its mean error against the step's mean
    move, and every moment after the step; rwkv at three seeds), the remat
-   policies "none", "dots" and "full" bitwise equal on the card, two
-   microbatches against one; (b) Qwen1.5-0.5B at full width,
+   policies "none", "dots" and "full" bitwise equal on the card (f32 and
+   bf16), two microbatches against one; (b) Qwen1.5-0.5B at full width,
    bf16 params, f32 moments, remat "full", ``launch.train``'s optimizer
    defaults: 30 steps of 8 x 512 tokens from ``data.batch_at`` under the
    sync check, the losses finite and falling, ms a step and tokens/s
@@ -181,10 +185,37 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    processes one after the other, on a thread beside (a), joined before
    (b)'s timing), and in one
    process 8 steps + checkpoint + restore + 4 steps bitwise equal to 12;
-   (d) ``repro_torch.train_100m`` at its settings but 100 steps of its
-   300 (the script's time limit), with its checkpoint at 100, its first
-   and last logged loss and ms a step; then, last, device activities a
-   step and the idle share over 3 profiled steps of (b);
+   (d) ``repro_torch.train_100m`` at its settings but 20 steps of its
+   300 (the script's time limit), with its checkpoint at 20, its first
+   and last logged loss and ms a step; then [dist] (below) and, last,
+   device activities a step and the idle share over 3 profiled steps of
+   (b);
+[dist] the mesh half of the training path (``repro_torch.distributed``,
+   the mesh and int8 train steps, ``checkpoint`` on DTensors, the
+   launcher's mesh flags; no kernel of the port on it), in [train]'s
+   process after its (d) and before its profiled steps, on a one-rank
+   NCCL process group and its (1, 1) ``DeviceMesh`` (the machine has one
+   card), its CPU route in five processes (``--dist-cpu-worker OUT
+   PART``, one thread each, run beside [train] (a), waited for):
+   (a) each of the ten archs at ``configs.reduced()`` in f32, B, S = 2,
+   64, one mesh step (two microbatches, ``seq_shard``) against the
+   card's one-device step ([train] (a)'s two-microbatch step; bitwise,
+   under deterministic algorithms) and
+   against the same step on a one-rank gloo mesh on the CPU ([train]
+   (a)'s tolerances), and the int8 compressed step card against CPU
+   (within two int8 quanta of the shared scale); (b) Qwen1.5-0.5B at full
+   width, bf16, remat "full", two microbatches of 4 x 512 tokens, 5 steps
+   each under ``DEFAULT_RULES``, ``FSDP_RULES`` and ``seq_shard``, the
+   params DTensors and the backend NCCL, each bitwise equal to the
+   one-device step, ms a step beside the one-device step's, every kernel
+   launch count 0; the int8 compressed step at DP 1 at full width against
+   one plain step (the loss equal, the moments within two int8 quanta of
+   the leaf's largest plus 2^-7 for the plain step's bf16 rounding of its
+   clipped grads, the params within 2 lr + 1e-4);
+   (c) the params saved from the mesh, files byte-equal to a one-device
+   save, restored with ``FSDP_RULES`` placements bitwise; (d)
+   ``launch.train --data 2 --model 1`` raising with the card count, and
+   the card's memory equal to ``distributed.sharding.H100_HBM_BYTES``;
 11. print the ``kernels`` line and, last, ``{"ok": true, "device": ...}``.
 
 Without a CUDA device it exits 1 and prints no result.
@@ -280,7 +311,10 @@ ORACLE_POLICIES = [
     dict(data_policy=1, pt_policy=10, mig=False, autonuma=True,
          autonuma_period=16, autonuma_budget=32, autonuma_exchange=False),
 ]
-REDUCED = dict(footprint=1 << 13, run_steps=512)     # phase [10]'s trace
+# phase [10]'s trace: 192 populate and 384 run steps, one scan tick (at
+# step 512, the default autonuma_period, so a hoist window); its footprint
+# is cut so that the script, [dist] included, stays within its time limit
+REDUCED = dict(footprint=1 << 12, run_steps=384)
 
 
 def sim_cases():
@@ -782,7 +816,7 @@ def launch_count_phase(replays):
     same step kinds: a populate step, a fault on most threads; a
     run-phase step, no fault) under the default (blocked) engine, one
     populate window (64 steps, replayed step by step) and four run-phase
-    windows (fast and hoist windows).  ``replays`` is (replayed, chunks)
+    windows (fast windows).  ``replays`` is (replayed, chunks)
     of each policy's timed run."""
     from repro_torch import quickstart as tq
     from repro_torch.core import TieredMemSimulator, benchmark_machine, workloads
@@ -1188,7 +1222,7 @@ def timed_run(sim, trace):
     return runner.result(), runner, time.perf_counter() - t0
 
 
-def cpu_route_phase(width=6):
+def cpu_route_phase(width=8):
     """[10] per case, the card's blocked run against its per-step run
     (``debug=True``; ``engines_agree``) and against the port's own CPU
     route, field for field over the final state and the timeline, at a
@@ -1240,8 +1274,8 @@ def cpu_route_phase(width=6):
                 per_step, _, per_step_s = timed_run(
                     TieredMemSimulator(mc=mc, pc=pc, engine="per_step",
                                        debug=True), trace)
-                held.append(engines_agree(card, per_step,
-                                          f"[10] {name}: blocked vs per-step"))
+                held.append(engines_agree(
+                    card, per_step, f"[10] {name}: blocked vs per-step"))
                 ran.append((trace, runner, counts, blocked_s, per_step_s))
                 top_up(tmp)
             for i, (name, _, _) in enumerate(cases):
@@ -1268,8 +1302,8 @@ def cpu_route_phase(width=6):
                 s = card.summary()
                 log(f"[10] {name}: card blocked == card per-step (state "
                     f"bitwise, integer timeline keys exact, f32 keys "
-                    f"{held[i]}) == CPU route on all {len(fields)} state "
-                    f"fields and {len(timeline)} timeline keys; "
+                    f"{held[i]}) == CPU route on all {len(fields)} "
+                    f"state fields and {len(timeline)} timeline keys; "
                     f"{trace.n_steps} steps, windows {runner.plan.counts}, "
                     f"{counts['fast_window']} fast_window launches, faults "
                     f"{s['faults']}, data migrations {s['data_migrations']}, "
@@ -1316,18 +1350,26 @@ def lanes_bitwise(got, want, what):
               f"on {bad}")
 
 
-def timed_sweep(mc, ccs, pols, traces, what):
+def timed_sweep(mc, ccs, pols, traces, what, lane_sharding=None):
     """(lanes, seconds) of one ``sweep_lanes`` on the card, the loop under
     the sync check, with ``alloc_scan`` launches == the union's steps with
-    a fault and ``fast_window`` launches == the plan's fast segments."""
+    a fault and ``fast_window`` launches == the plan's fast segments.
+    With a ``lane_sharding``, the run must be a lane mesh's (one engine
+    per device), and its engines' fast segments are summed."""
     import numpy as np
     import torch
     from repro_torch.core import fault_step_mask
-    from repro_torch.core.sweep import sweep_runner
+    from repro_torch.core.sweep import LaneMeshRunner, sweep_runner
     from repro_torch.kernels import ops
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    runner = sweep_runner(mc, ccs, pols, traces)
+    runner = sweep_runner(mc, ccs, pols, traces, lane_sharding=lane_sharding)
+    engines = [runner]
+    if lane_sharding is not None:
+        check(isinstance(runner, LaneMeshRunner),
+              f"{what}: lane_sharding={lane_sharding!r} did not run a lane "
+              f"mesh")
+        engines = runner.runners
     ops.reset_launches()
     with sync_error():
         runner.advance()
@@ -1340,7 +1382,7 @@ def timed_sweep(mc, ccs, pols, traces, what):
     check(counts["alloc_scan"] == int(union.sum()),
           f"{what}: alloc_scan launches {counts['alloc_scan']} != "
           f"{int(union.sum())} steps where a lane faults")
-    check(counts["fast_window"] == runner.fast_segments,
+    check(counts["fast_window"] == sum(e.fast_segments for e in engines),
           f"{what}: fast_window launches != fast segments")
     return runner.results(), seconds, counts, runner.plan.counts
 
@@ -1437,9 +1479,11 @@ def sweep_cases(cases, solo):
     the solo blocked run of its case: one 6-lane sweep of the six
     ``benchmark_machine()`` policies, one 2-lane sweep of ``tpp()`` and
     ``nomad()`` on ``cxl_machine()`` (``solo`` holds [10]'s solo runs, in
-    ``cases`` order); the quickstart's two policies, with telemetry
-    (``quickstart_lanes``); a 2-trace grid of 4 lanes with a mid-run free
-    in one trace and three CostConfigs (against 4 solo runs made here);
+    ``cases`` order), which runs again with ``lane_sharding="auto"`` (on
+    one card the lane mesh of one device, run as a mesh: bitwise and with
+    the same launches as without); the quickstart's two policies, with
+    telemetry (``quickstart_lanes``); a 2-trace grid of 4 lanes with a
+    mid-run free in one trace and three CostConfigs (against 4 solo runs made here);
     then a machine of 33 to 64 ways (``WIDE_CACHES``), blocked against
     per-step.  Returns how its f32 timeline keys held
     (``engines_agree``)."""
@@ -1459,6 +1503,18 @@ def sweep_cases(cases, solo):
         log(f"{what}: each lane == its solo blocked run bitwise (every state "
             f"field and timeline key); windows {plan}, launches {counts}; "
             f"{sec:.2f} s for {len(pols)} lanes")
+        if lo == 6:     # the lane mesh of the one card, run as a mesh
+            mesh_what = f"{what}, lane_sharding='auto'"
+            got, sec, mesh_counts, mesh_plan = timed_sweep(
+                mc, [CostConfig()] * len(pols), pols, [trace] * len(pols),
+                mesh_what, lane_sharding="auto")
+            lanes_bitwise(got, lanes, mesh_what)
+            check(mesh_counts == counts and mesh_plan == plan,
+                  f"{mesh_what}: launches {mesh_counts}, windows "
+                  f"{mesh_plan} != the unsharded sweep's {counts}, {plan}")
+            log(f"{mesh_what} (a lane mesh of 1 device): each lane == the "
+                f"unsharded sweep's bitwise; windows {mesh_plan}, launches "
+                f"{mesh_counts}, the unsharded sweep's; {sec:.2f} s")
     quickstart_lanes()
 
     mc = benchmark_machine()
@@ -2029,11 +2085,14 @@ def train_bound_ms(cfg, B, S) -> tuple[float, float]:
 def train_phase(dev):
     """[train]: (a) ``train_data`` and ``train_archs``, with (c)'s two
     launcher processes (``kill_and_resume``) running beside them on a
-    thread that is joined before (b) starts, so that nothing shares the
-    card with (b)'s timing; (b) ``train_full_width``; (c)
-    ``train_resume``; (d) ``train_example``; then (b)'s device activities
-    and idle share over 3 profiled steps, last.  The temporary files are
-    removed whatever happens."""
+    thread, and [dist]'s CPU route in its processes, both waited for
+    before (b) starts, so that nothing shares the card or the cores with
+    (b)'s timing; (b) ``train_full_width``; (c) ``train_resume``; (d)
+    ``train_example``; [dist] (``dist_run``, with (a)'s two-microbatch
+    steps as its one-device steps and the CPU route's results); then
+    (b)'s device activities and idle share over 3 profiled steps, last,
+    so that the profiler slows no phase after it.  The temporary files
+    are removed, and the processes ended, whatever happens."""
     import os
     import shutil
     import tempfile
@@ -2054,20 +2113,37 @@ def train_phase(dev):
 
     launcher = threading.Thread(target=launcher_runs)
     launcher.start()
+    # [dist]'s CPU route, one thread a process, beside (a) on the cores
+    # that (a) and the launcher leave
+    cpu_out = [os.path.join(tmp, f"dist_cpu{i}.pt")
+               for i in range(DIST_CPU_WORKERS)]
+    cpu = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                             "--dist-cpu-worker", out, str(i)])
+           for i, out in enumerate(cpu_out)]
     try:
         train_data(dev)
-        train_archs(dev)
+        ones = train_archs(dev)
         launcher.join()
         if "error" in killed:
             raise killed["error"]
+        for p in cpu:
+            p.wait(timeout=600)
         profiled = train_full_width(dev)
         train_resume(dev, tmp, killed)
         train_example(tmp)
+        t_dist = time.perf_counter()
+        dist_run(ones, cpu, cpu_out)
+        t_dist = time.perf_counter() - t_dist
         profiled()
     finally:
         launcher.join()
+        for p in cpu:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
         shutil.rmtree(tmp, ignore_errors=True)
-    log(f"[train] total {time.perf_counter() - t0:.1f} s")
+    log(f"[train] total {time.perf_counter() - t0 - t_dist:.1f} s (and "
+        f"[dist] {t_dist:.1f} s)")
 
 
 def train_data(dev):
@@ -2121,7 +2197,9 @@ def train_archs(dev):
     64: one train step on the card against the CPU route on the same
     params and batch (rwkv at RWKV_SEEDS, and in f32 again with its steps
     kept in f32); on the card, under deterministic algorithms, the three
-    remat policies bitwise equal and two microbatches against one."""
+    remat policies bitwise equal and two microbatches against one.
+    Returns the two-microbatch steps (f32, seed 0) by arch: [dist] (a)'s
+    one-device steps."""
     import torch
 
     from repro_torch import configs, models
@@ -2129,7 +2207,7 @@ def train_archs(dev):
     from repro_torch.models.modules import tree_leaves
     t0 = time.perf_counter()
     torch.use_deterministic_algorithms(True)
-    worst, rwkv_reads, remat_same = {}, [], 0
+    worst, rwkv_reads, remat_same, ones = {}, [], 0, {}
     for arch in configs.ARCH_IDS:
         for dtype in ("float32", "bfloat16"):
             cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)),
@@ -2170,7 +2248,8 @@ def train_archs(dev):
                           f"{what}: remat {pol!r} differs from 'full'")
                     remat_same += 1
                 if dtype == "float32" and seed == 0:
-                    two = one_step(cfg, cpu, batch, dev, microbatches=2)
+                    ones[arch] = two = one_step(cfg, cpu, batch, dev,
+                                                microbatches=2)
                     # tests/test_training.py's microbatching criterion
                     check(abs(float(two[2]["loss"])
                               / float(card["full"][2]["loss"]) - 1) <= 2e-2,
@@ -2207,6 +2286,7 @@ def train_archs(dev):
         f"the card in {remat_same} of {remat_same} cases; two microbatches "
         f"within tests/test_training.py's tolerance of one; "
         f"{time.perf_counter() - t0:.1f} s")
+    return ones
 
 
 def train_full_width(dev):
@@ -2453,8 +2533,9 @@ def train_resume(dev, tmp, killed):
 
 # train_100m's steps in [train] (d): its settings run 300, but at about
 # 0.41 s a step on the card (host-bound) they would take the script past
-# its time limit; 100 still log five times and write its first checkpoint
-STEPS_100M = 100
+# its time limit (since [dist] was added, 100 do too); 20 still log twice,
+# and its checkpoint interval is cut to them so that it writes one
+STEPS_100M = 20
 
 
 def train_example(tmp):
@@ -2477,8 +2558,9 @@ def train_example(tmp):
     configs.REGISTRY[train_100m.CONFIG.name] = train_100m.CONFIG
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        final = launch.main(train_100m.argv(STEPS_100M,
-                                            os.path.join(tmp, "100m")))
+        argv = train_100m.argv(STEPS_100M, os.path.join(tmp, "100m"))
+        argv[argv.index("--ckpt-every") + 1] = str(STEPS_100M)
+        final = launch.main(argv)
     wall = time.perf_counter() - t3
     lines = [x for x in out.getvalue().splitlines() if x.startswith("step ")]
     for x in lines:
@@ -2491,12 +2573,12 @@ def train_example(tmp):
           f"[train] (d) train_100m's loss did not fall: {lines}")
     saved = ckpt.latest_step(os.path.join(tmp, "100m"))
     check(saved == STEPS_100M, f"[train] (d) its checkpoint is at {saved}")
-    tok_s = statistics.median(t for _, _, t in logged[2:])
+    tok_s = statistics.median(t for _, _, t in logged[1:])
     n100 = sum(math.prod(s.shape) for s in tree_leaves(
         models.param_specs(train_100m.CONFIG)))
     log(f"[train] (d) train_100m (qwen-100m: {n100} params, 16 x 256 "
-        f"tokens, 2 microbatches, lr 1e-3, a checkpoint every 100 steps; "
-        f"{STEPS_100M} of its 300 steps): "
+        f"tokens, 2 microbatches, lr 1e-3, a checkpoint after "
+        f"{STEPS_100M} steps; {STEPS_100M} of its 300 steps): "
         f"loss {logged[0][1]:.4f} at step {logged[0][0]} -> "
         f"{logged[-1][1]:.4f} at step {logged[-1][0]}; "
         f"{16 * 256 / tok_s * 1e3:.3f} ms a step at the logged median "
@@ -2505,14 +2587,401 @@ def train_example(tmp):
 
 
 def train_worker() -> int:
-    """[train] in a process of its own (``chip_smoke.py --train-worker``),
-    for the same reason as [model]: its profiled steps must slow no later
-    phase.  Started with ``CUBLAS_WORKSPACE_CONFIG`` set, so that (a) and
-    (c) can ask for deterministic algorithms."""
+    """[train] and [dist] in a process of their own (``chip_smoke.py
+    --train-worker``), for the same reason as [model]: the profiled steps
+    must slow no later phase.  Started with ``CUBLAS_WORKSPACE_CONFIG``
+    set, so that [train] (a) and (c) and [dist] (a) can ask for
+    deterministic algorithms."""
     sys.path.insert(0, str(ROOT / "src"))
     import torch
     train_phase(torch.device("cuda"))
     return 0
+
+
+# -- [dist] the mesh half of the training path ---------------------------------
+DIST_TC = dict(microbatches=2, seq_shard=True)    # [dist] (a)'s TrainConfig
+DIST_STEPS = 5                                    # [dist] (b)'s steps a run
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def plain(tree):
+    """A tree of DTensors (and tensors) as plain tensors, gathered whole."""
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch.models.modules import tree_map
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(plain(t) for t in tree)
+    return tree_map(lambda t: t.full_tensor() if isinstance(t, DTensor)
+                    else t, tree)
+
+
+def mesh_step(cfg, params, batch, mesh, rules=None, **tc):
+    """One ``make_train_step`` step on a mesh: copies of ``params`` laid
+    out by ``rules`` (default: ``DEFAULT_RULES``), lr TRAIN_LR from the
+    first step; returns (params, opt_state, metrics) as plain tensors."""
+    from repro_torch import models
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.models.modules import tree_map
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train as ttrain
+    dev = mesh.device_type
+    p = tree_map(lambda a: a.detach().clone().to(dev), params)
+    st = topt.init_opt_state(p)
+    specs = models.param_specs(cfg)
+    p = sh.distribute(p, sh.param_shardings(specs, mesh, rules))
+    st = sh.distribute(st, sh.opt_state_shardings(specs, mesh, rules))
+    step = ttrain.make_train_step(cfg, ttrain.TrainConfig(
+        opt=topt.OptConfig(lr=TRAIN_LR, warmup_steps=1), **tc), mesh)
+    return plain(step(p, st, {k: v.to(dev) for k, v in batch.items()}))
+
+
+def compressed_step(cfg, params, batch, mesh):
+    """One int8 ``make_compressed_train_step`` step on a mesh (plain
+    params, the same on every rank), lr TRAIN_LR from the first step."""
+    from repro_torch.models.modules import tree_map
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train as ttrain
+    dev = mesh.device_type
+    p = tree_map(lambda a: a.detach().clone().to(dev), params)
+    step = ttrain.make_compressed_train_step(cfg, ttrain.TrainConfig(
+        compress_grads="int8", opt=topt.OptConfig(lr=TRAIN_LR,
+                                                  warmup_steps=1)), mesh)
+    return step(p, topt.init_opt_state(p),
+                {k: v.to(dev) for k, v in batch.items()})
+
+
+# the int8 compressed step, card against CPU: a grad element whose f32
+# value differs in its last bits may round to the next int8 quantum of the
+# shared scale (max |g| / 127), which moves its first moment by (1 - b1)
+# of a quantum and its second by up to twice that, relative to the leaf's
+# largest, and its param by up to 2 lr (Adam's first step)
+COMPRESSED_QUANTA = 2
+
+
+# against a plain bf16 step, whose clip rounds each grad to bf16 (within
+# 2^-8 of itself, so its square within 2^-7), its moments may differ by
+# that too
+BF16_CLIP_ROUNDING = 2.0 ** -7
+
+
+def compressed_held(got, want, what, extra=0.0) -> dict:
+    """An int8 compressed step's (params, opt_state, metrics) against
+    another's: loss to 1e-4, params to 2 lr + 1e-4, moments to
+    COMPRESSED_QUANTA int8 quanta of the leaf's largest (plus ``extra``
+    of it); the readings."""
+    import torch
+    gs, ws = train_state(*got[:2]), train_state(*want[:2])
+    r = dict(loss=held(got[2]["loss"], want[2]["loss"], 1e-4, f"{what} loss"),
+             params=0.0, moments=0.0)
+    for k in ws:        # on ``got``'s device: at full width, gigabytes
+        g = gs[k].detach().float()
+        w = ws[k].detach().float().to(g.device)
+        check(g.shape == w.shape and bool(torch.isfinite(g).all()),
+              f"{what} {k}: shape {tuple(g.shape)} against "
+              f"{tuple(w.shape)}, or not finite")
+        d = float((g - w).abs().max())
+        if k.startswith("params/"):
+            check(d <= 2 * TRAIN_LR + 1e-4, f"{what} {k}: max abs err {d:.4g}")
+            r["params"] = max(r["params"], d)
+        elif k != "opt/step":
+            mx = d / max(float(w.abs().max()), 1e-30)
+            check(mx <= COMPRESSED_QUANTA / 127 + extra + 1e-4,
+                  f"{what} {k}: max error {mx:.4g} of the leaf's largest")
+            r["moments"] = max(r["moments"], mx)
+    return r
+
+
+def dist_cases():
+    """[dist] (a)'s cases: each arch at ``reduced()`` in f32, its params
+    (seed 0) and batch (B, S = 2, 64), on the CPU."""
+    import torch
+
+    from repro_torch import configs, models
+    for arch in configs.ARCH_IDS:
+        cfg = dataclasses.replace(configs.reduced(configs.get_config(arch)),
+                                  dtype="float32")
+        yield arch, cfg, models.make_params(
+            cfg, torch.Generator().manual_seed(0), "cpu"), \
+            model_batch(models, cfg, 2, 64, "train", 1)
+
+
+DIST_CPU_WORKERS = 5       # [dist]'s CPU route: processes, cases split
+
+
+def dist_cpu_worker(out: str, part: int) -> int:
+    """[dist]'s CPU route (``chip_smoke.py --dist-cpu-worker OUT PART``):
+    the mesh step of every DIST_CPU_WORKERS-th [dist] (a) case from
+    ``part`` (part 0 also the int8 compressed step of Qwen1.5-0.5B's), on
+    a one-rank gloo (1, 1) mesh, saved to OUT.  The steps are bound by
+    DTensor's Python dispatch, so the cases run in processes side by
+    side, each with its share of the cores."""
+    import os
+    sys.path.insert(0, str(ROOT / "src"))
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.distributed import sharding as sh
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // DIST_CPU_WORKERS))
+    dist.init_process_group("gloo", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1)
+    try:
+        mesh = sh.make_mesh((1, 1), ("data", "model"), "cpu")
+        res = {}
+        for i, (arch, cfg, params, batch) in enumerate(dist_cases()):
+            if i % DIST_CPU_WORKERS == part:
+                res[arch] = mesh_step(cfg, params, batch, mesh, **DIST_TC)
+            if part == 0 and arch == "qwen1.5-0.5b":
+                res["compressed"] = compressed_step(cfg, params, batch, mesh)
+        torch.save(res, out)
+    finally:
+        dist.destroy_process_group()
+    return 0
+
+
+def dist_run(ones, cpu, cpu_out) -> None:
+    """[dist] in [train]'s process, after [train] (d): a one-rank NCCL
+    process group on the card and its (1, 1) mesh; ``ones`` holds
+    [train] (a)'s two-microbatch one-device steps, which are [dist] (a)'s
+    (``seq_shard`` is the identity off a mesh), and ``cpu`` the CPU
+    route's processes (started beside [train] (a)), each writing its
+    file of ``cpu_out``."""
+    import shutil
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_dist_")
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", rank=0, world_size=1,
+                            device_id=dev)
+    try:
+        dist_phase(dev, cpu, cpu_out, tmp, ones)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"[dist] total {time.perf_counter() - t0:.1f} s")
+
+
+def dist_phase(dev, cpu, cpu_out, tmp, ones):
+    """[dist]: (a) each reduced arch's mesh step on the card's (1, 1) NCCL
+    mesh against its one-device step (``ones``; bitwise) and against the CPU
+    route's gloo mesh ([train] (a)'s tolerances); (b) Qwen1.5-0.5B at
+    full width on the mesh under three layouts against the one-device
+    step, and its int8 compressed step; (c) checkpoints; (d) the
+    launcher's device check and the kernels' launch counts."""
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+
+    from repro_torch import configs, models
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import DataConfig, batch_at
+    from repro_torch.distributed import sharding as sh
+    from repro_torch.kernels import ops
+    from repro_torch.launch import train as launch
+    from repro_torch.models.modules import tree_leaves, tree_map
+    from repro_torch.training import optimizer as topt
+    from repro_torch.training import train as ttrain
+    mesh = sh.make_mesh((1, 1), ("data", "model"), "cuda")
+    backend = dist.get_backend(mesh.get_group("data"))
+    check(backend == "nccl", f"[dist] the mesh's backend is {backend}")
+    # -- (a) the reduced archs
+    t1 = time.perf_counter()
+    torch.use_deterministic_algorithms(True)
+    card, bitwise, differ = {}, [], {}
+    for arch, cfg, params, batch in dist_cases():
+        card[arch] = got = mesh_step(cfg, params, batch, mesh, **DIST_TC)
+        want = ones[arch]
+        gs, ws = train_state(*got[:2]), train_state(*want[:2])
+        same = all(torch.equal(gs[k], ws[k]) for k in ws) and all(
+            torch.equal(got[2][k], want[2][k]) for k in want[2])
+        if same:
+            bitwise.append(arch)
+        else:
+            differ[arch] = step_held(
+                got, tuple(tree_map(lambda t: t.cpu(), x) for x in want),
+                params, arch, "float32",
+                f"[dist] (a) {arch} mesh vs one device")
+    torch.use_deterministic_algorithms(False)
+    cpu_res = {}
+    for p, out in zip(cpu, cpu_out):
+        p.wait(timeout=600)
+        check(p.returncode == 0, f"[dist] the CPU route exited {p.returncode}")
+        cpu_res.update(torch.load(out))
+    worst = {}
+    for arch, cfg, params, batch in dist_cases():
+        worst[arch] = step_held(card[arch], cpu_res[arch], params, arch,
+                                "float32", f"[dist] (a) {arch} card vs CPU "
+                                           f"mesh")
+    for arch, cfg, params, batch in dist_cases():
+        if arch == "qwen1.5-0.5b":
+            comp_r = compressed_held(
+                compressed_step(cfg, params, batch, mesh),
+                cpu_res["compressed"], "[dist] (a) int8 compressed step "
+                                       "card vs CPU")
+    log(f"[dist] (a) ten reduced archs in f32, one step ({DIST_TC}) on the "
+        f"card's one-rank NCCL (1, 1) mesh: bitwise equal to the one-device "
+        f"step in {len(bitwise)} of 10"
+        + (f" (the rest within [train] (a)'s tolerances: "
+           + ", ".join(f"{a}: params {r['params']:.3g} of the tolerance, "
+                       f"loss {r['loss']:.3g}" for a, r in differ.items())
+           + ")" if differ else "")
+        + "; card vs the CPU route's gloo mesh: " + ", ".join(
+            f"{a} loss {r['loss']:.3g} params {r['params']:.3g}"
+            for a, r in worst.items())
+        + f"; the int8 compressed step card vs CPU: loss {comp_r['loss']:.3g}"
+          f", params {comp_r['params']:.3g} (2 lr + 1e-4: "
+          f"{2 * TRAIN_LR + 1e-4:g}), moments {comp_r['moments']:.4g} of the "
+          f"leaf's largest ({COMPRESSED_QUANTA} int8 quanta: "
+          f"{COMPRESSED_QUANTA / 127:.4g}); "
+          f"{time.perf_counter() - t1:.1f} s")
+    # -- (b) Qwen1.5-0.5B at full width
+    t1 = time.perf_counter()
+    cfg = configs.get_config("qwen1.5-0.5b")
+    B, S = 8, 512
+    opt = topt.OptConfig(lr=3e-3, warmup_steps=20, total_steps=30)
+    dc = DataConfig(vocab=cfg.vocab, seq_len=S, global_batch=B)
+    specs = models.param_specs(cfg)
+    base = models.make_params(cfg, torch.Generator(device=dev).manual_seed(0),
+                              dev)
+    batch_at(dc, 0, device=dev)            # the lookup tables, copied once
+
+    def run(rules=None, seq_shard=False, on_mesh=True):
+        p = tree_map(lambda a: a.detach().clone(), base)
+        st = topt.init_opt_state(p)
+        tc = ttrain.TrainConfig(microbatches=2, seq_shard=seq_shard,
+                                remat_policy="full", opt=opt)
+        if on_mesh:
+            p = sh.distribute(p, sh.param_shardings(specs, mesh, rules))
+            st = sh.distribute(st, sh.opt_state_shardings(specs, mesh, rules))
+            step = ttrain.make_train_step(cfg, tc, mesh)
+        else:
+            step = ttrain.make_train_step(cfg, tc, device=dev)
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(DIST_STEPS + 1)]
+        losses = []
+        torch.cuda.synchronize()
+        ev[0].record()
+        for i in range(DIST_STEPS):
+            p, st, m = step(p, st, batch_at(dc, i, device=dev))
+            ev[i + 1].record()
+            losses.append(m["loss"])
+        torch.cuda.synchronize()
+        ms = [ev[i].elapsed_time(ev[i + 1]) for i in range(DIST_STEPS)]
+        if on_mesh:
+            check(all(isinstance(x, DTensor) for x in tree_leaves(p)),
+                  "[dist] (b) the mesh step's params are not all DTensors")
+        return p, st, [float(x) for x in losses], ms
+
+    ops.reset_launches()
+    one_p, one_st, one_losses, one_ms = run(on_mesh=False)
+    want = train_state(one_p, one_st)
+    layouts = {}
+    for name, rules, seq in (("DEFAULT_RULES", sh.DEFAULT_RULES, False),
+                             ("FSDP_RULES", sh.FSDP_RULES, False),
+                             ("DEFAULT_RULES + seq_shard", sh.DEFAULT_RULES,
+                              True)):
+        p, st, losses, ms = run(rules, seq)
+        got = train_state(*plain((p, st)))
+        off = [k for k in want if not torch.equal(got[k], want[k])]
+        err = max(float((got[k].detach().float() - want[k].detach().float())
+                        .abs().max()) for k in want if k.startswith("params/"))
+        # on a (1, 1) mesh every op is the one-device op: bitwise
+        check(losses == one_losses and not off,
+              f"[dist] (b) {name}: not bitwise equal to the one-device step "
+              f"(losses {losses} against {one_losses}; {len(off)} leaves "
+              f"differ, params max abs err {err:.4g})")
+        layouts[name] = statistics.median(ms[1:])
+        if name == "DEFAULT_RULES":
+            mesh_state = (p, st)
+        else:
+            del p, st
+    counts = ops.launch_counts()
+    check(not any(counts.values()), f"[dist] (b) the mesh path launched one "
+                                    f"of the port's kernels: {counts}")
+    # the int8 compressed step at DP 1, full width, against one plain step
+    small = {k: v.to(dev) for k, v in batch_at(dc, 0, device=dev).items()}
+    tc1 = ttrain.TrainConfig(opt=topt.OptConfig(lr=TRAIN_LR, warmup_steps=1))
+    pc = tree_map(lambda a: a.detach().clone(), base)
+    comp = ttrain.make_compressed_train_step(cfg, dataclasses.replace(
+        tc1, compress_grads="int8"), mesh)(pc, topt.init_opt_state(pc), small)
+    pw = tree_map(lambda a: a.detach().clone(), base)
+    ref1 = ttrain.make_train_step(cfg, tc1, device=dev)(
+        pw, topt.init_opt_state(pw), small)
+    # at DP 1 the sync is the int8 round trip of the rank's own grads:
+    # each element within half a quantum, so the moments within
+    # COMPRESSED_QUANTA of the leaf's largest, plus the plain step's bf16
+    # rounding of its clipped grads, and the params within 2 lr
+    check(float(comp[2]["loss"]) == float(ref1[2]["loss"]),
+          f"[dist] (b) int8 compressed step at DP 1: loss "
+          f"{float(comp[2]['loss'])} against {float(ref1[2]['loss'])}")
+    comp_r = compressed_held(comp, ref1, "[dist] (b) int8 compressed step "
+                                         "at DP 1 vs the plain step",
+                             extra=BF16_CLIP_ROUNDING)
+    del pc, pw, comp, ref1
+    log(f"[dist] (b) Qwen1.5-0.5B full width, bf16, remat 'full', 2 "
+        f"microbatches of 4 x {S}, {DIST_STEPS} steps, lr 3e-3 warmup 20; "
+        f"one device: {statistics.median(one_ms[1:]):.3f} ms a step (median "
+        f"of steps 2-{DIST_STEPS}), losses {[round(x, 4) for x in one_losses]}")
+    for name, ms in layouts.items():
+        log(f"[dist] (b) mesh (1, 1) NCCL, {name}: {ms:.3f} ms a step "
+            f"({ms / statistics.median(one_ms[1:]):.2f} times one device: "
+            f"DTensor's host cost), bitwise equal to one device")
+    log(f"[dist] (b) int8 compressed step at DP 1, full width: loss equal "
+        f"to the plain step's, params max abs err {comp_r['params']:.4g} "
+        f"(2 lr + 1e-4: {2 * TRAIN_LR + 1e-4:g}), moments "
+        f"{comp_r['moments']:.4g} of the leaf's largest ({COMPRESSED_QUANTA} "
+        f"int8 quanta and the plain step's bf16 rounding: "
+        f"{COMPRESSED_QUANTA / 127 + BF16_CLIP_ROUNDING:.4g}); launches of "
+        f"the port's kernels {counts}; {time.perf_counter() - t1:.1f} s")
+    # -- (c) checkpoints
+    import os
+    t1 = time.perf_counter()
+    p = mesh_state[0]
+    ckpt.save(os.path.join(tmp, "mesh"), DIST_STEPS, p)
+    ckpt.save(os.path.join(tmp, "one"), DIST_STEPS, plain(p))
+    a, b = (Path(tmp) / d / f"step_{DIST_STEPS}" for d in ("mesh", "one"))
+    names = sorted(f.name for f in a.iterdir())
+    check(names == sorted(f.name for f in b.iterdir()) and all(
+        (a / n).read_bytes() == (b / n).read_bytes() for n in names),
+        "[dist] (c) the mesh's checkpoint files differ from one device's")
+    back = ckpt.restore(os.path.join(tmp, "mesh"), DIST_STEPS, p,
+                        sh.param_shardings(specs, mesh, sh.FSDP_RULES))
+    check(all(isinstance(x, DTensor) for x in tree_leaves(back))
+          and all(torch.equal(a, b) for a, b in zip(
+              tree_leaves(plain(back)), tree_leaves(plain(p)))),
+          "[dist] (c) the restore is not bitwise")
+    del p, back, mesh_state
+    log(f"[dist] (c) the params after (b)'s {DIST_STEPS} DEFAULT_RULES "
+        f"steps, {len(names) - 1} leaves, saved from the mesh: files "
+        f"byte-equal to a one-device save; restored with FSDP_RULES "
+        f"placements bitwise; {time.perf_counter() - t1:.1f} s")
+    # -- (d) the launcher on one card
+    try:
+        launch.main(["--arch", "qwen1.5-0.5b", "--reduced", "--steps", "1",
+                     "--data", "2", "--model", "1"])
+        raised = ""
+    except ValueError as exc:
+        raised = str(exc)
+    n_dev = torch.cuda.device_count()
+    check("needs 2 CUDA devices" in raised and f"{n_dev} visible" in raised,
+          f"[dist] (d) launch.train --data 2 --model 1 on {n_dev} card(s) "
+          f"did not raise naming the count: {raised!r}")
+    total = torch.cuda.get_device_properties(0).total_memory
+    log(f"[dist] (d) launch.train --data 2 --model 1: {raised}; the card's "
+        f"total_memory {total} B (distributed.sharding.H100_HBM_BYTES "
+        f"{sh.H100_HBM_BYTES})")
+    check(total == sh.H100_HBM_BYTES or "H100" not in
+          torch.cuda.get_device_name(0),
+          "[dist] H100_HBM_BYTES is not this H100's total_memory")
 
 
 def main() -> int:
@@ -3129,14 +3598,15 @@ def main() -> int:
                             "--model-worker"], timeout=900)
     check(model.returncode == 0, f"[model] exited {model.returncode}")
     log(f"[model] total wall {time.perf_counter() - t_start:.1f} s")
-    # -- [train] the model stack's training path, in a process of its own
+    # -- [train] the model stack's training path and [dist] its mesh half,
+    # in a process of their own
     import os
     train = subprocess.run([sys.executable, str(Path(__file__).resolve()),
                             "--train-worker"], timeout=900,
                            env=dict(os.environ,
                                     CUBLAS_WORKSPACE_CONFIG=":4096:8"))
     check(train.returncode == 0, f"[train] exited {train.returncode}")
-    log(f"[train] total wall {time.perf_counter() - t_start:.1f} s")
+    log(f"[train] and [dist] total wall {time.perf_counter() - t_start:.1f} s")
     left = live_children()
     check(not left, f"processes this script started are still running: {left}")
 
@@ -3175,6 +3645,8 @@ if __name__ == "__main__":
         sys.exit(cpu_route_worker(int(sys.argv[2]), sys.argv[3]))
     if sys.argv[1:2] == ["--model-worker"]:
         sys.exit(model_worker())
+    if sys.argv[1:2] == ["--dist-cpu-worker"]:
+        sys.exit(dist_cpu_worker(sys.argv[2], int(sys.argv[3])))
     if sys.argv[1:2] == ["--train-worker"]:
         sys.exit(train_worker())
     sys.exit(main())

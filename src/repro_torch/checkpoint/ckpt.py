@@ -17,8 +17,13 @@ checkpoint (``latest_step`` only considers directories with a manifest).
 ``save`` copies every leaf to the host before it returns, also with
 ``blocking=False`` (the writer thread then only writes files): the train
 step updates params and moments in place, so the thread must not read
-them.  ``restore`` takes ``device=`` in place of the reference's
-``shardings``: one device (a mesh waits for the distributed slice).
+them.  A DTensor leaf is gathered whole (``full_tensor``, a collective,
+so every rank calls ``save``) before the thread starts, and in a process
+group only rank 0 writes: the files are those of a one-device save.
+``restore`` reads every leaf on every rank; with ``shardings`` (a tree of
+``distributed.sharding.NamedSharding``, any mesh) each leaf becomes a
+DTensor laid out as its sharding says — the elastic path: one mesh's
+checkpoint reloads onto another — and the rest go to ``device``.
 """
 from __future__ import annotations
 
@@ -31,18 +36,22 @@ from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from ..device import resolve_device
+from ..distributed.sharding import NamedSharding
 
 _SEP = "/"
 
 
 def _flatten(tree, prefix=()) -> Dict[str, Any]:
     """{path: leaf} in ``jax.tree_util``'s order: dict keys sorted, list
-    and tuple entries by index."""
+    and tuple entries by index (a NamedSharding is a leaf)."""
     if isinstance(tree, dict):
         items = ((str(k), tree[k]) for k in sorted(tree))
-    elif isinstance(tree, (list, tuple)):
+    elif isinstance(tree, (list, tuple)) \
+            and not isinstance(tree, NamedSharding):
         items = ((str(i), v) for i, v in enumerate(tree))
     else:
         return {_SEP.join(prefix): tree}
@@ -66,6 +75,8 @@ def _host_copy(t: torch.Tensor) -> np.ndarray:
     """A numpy copy of ``t`` that shares no memory with it (bfloat16 as
     its 16-bit pattern)."""
     t = t.detach()
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).to("cpu", copy=True).numpy() \
             .view(np.uint16)
@@ -100,11 +111,17 @@ def save(ckpt_dir: str, step: int, tree, *, blocking: bool = True
             shutil.rmtree(final)
         tmp.rename(final)
 
+    if dist.is_initialized() and dist.get_rank() != 0:
+        write = _nothing
     t = threading.Thread(target=write, daemon=True)
     t.start()
     if blocking:
         t.join()
     return t
+
+
+def _nothing():
+    pass
 
 
 def latest_step(ckpt_dir: str) -> Optional[int]:
@@ -120,17 +137,20 @@ def latest_step(ckpt_dir: str) -> Optional[int]:
     return max(steps) if steps else None
 
 
-def restore(ckpt_dir: str, step: int, example_tree, device=None):
+def restore(ckpt_dir: str, step: int, example_tree, shardings=None,
+            device=None):
     """Load into the structure of ``example_tree`` (tensors, ``meta`` ones
-    included, giving each leaf's shape and dtype), each leaf cast to its
-    example's dtype on ``device`` (``None``: the CUDA device)."""
-    dev = resolve_device(device)
+    and DTensors included, giving each leaf's shape and dtype), each leaf
+    cast to its example's dtype.  A leaf with a NamedSharding in
+    ``shardings`` becomes a DTensor on that sharding's mesh; the others go
+    to ``device`` (``None``: the CUDA device)."""
     final = Path(ckpt_dir) / f"step_{step}"
     manifest = json.loads((final / "manifest.json").read_text())
     flat = _flatten(example_tree)
     missing = [k for k in flat if k not in manifest["leaves"]]
     if missing:
         raise ValueError(f"checkpoint missing leaves: {missing[:5]}")
+    flat_sh = _flatten(shardings) if shardings is not None else {}
     out = []
     for key, leaf in flat.items():
         info = manifest["leaves"][key]
@@ -142,5 +162,11 @@ def restore(ckpt_dir: str, step: int, example_tree, device=None):
             t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
         else:
             t = torch.from_numpy(arr)
-        out.append(t.to(device=dev, dtype=leaf.dtype))
+        sh = flat_sh.get(key)
+        if sh is not None:
+            t = t.to(device=sh.mesh.device_type, dtype=leaf.dtype)
+            out.append(distribute_tensor(t, sh.mesh, list(sh.placements),
+                                         src_data_rank=None))
+        else:
+            out.append(t.to(device=resolve_device(device), dtype=leaf.dtype))
     return _unflatten(example_tree, iter(out))

@@ -38,8 +38,18 @@ candidate bound is the largest ``autonuma_budget`` of the lanes (or the
 ``budget`` override, which may only raise it), and each lane's own budget
 gates through masks; the allocator's conflict-group bound (``group``)
 is the power of two of the lanes' most winners in a step, overridable
-upward.  One device: ``lane_sharding`` must be ``None``, and there is no
-``lane_mesh``.
+upward.
+
+``lane_sharding`` shards the lane axis over devices, as the reference's
+lane mesh does: ``None`` runs every lane in one engine on ``device``;
+``"auto"`` takes :func:`lane_mesh` of the lane count (the visible CUDA
+devices, or ``[device]`` when that is not CUDA); a :class:`LaneMesh`
+is taken as it is.  Each device runs one engine over its block of lanes,
+the engines advance in lockstep (a window, or for the per-step engine a
+step, each in turn, so that the devices' work overlaps), and the results
+come out in lane order.  A lane's bits do not depend on the lane count,
+so the split is bitwise; on one device ``"auto"`` is the degenerate mesh
+of one, run as a mesh.
 
 ``telemetry`` (optional :class:`repro_torch.obs.Telemetry`) records the
 reference's counters and spans: ``sweep.calls`` / ``sweep.lanes`` per
@@ -55,14 +65,19 @@ is the one wait the span closes on.
 """
 from __future__ import annotations
 
+import dataclasses
 import time
-from typing import List, Optional, Sequence, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
+import numpy as np
+import torch
+
+from ..device import resolve_device
 from ..obs import or_null
 from .config import CostConfig, MachineConfig, PolicyConfig
 from .sim import (DEFAULT_BLOCK, BlockedRunner, RunResult, Stepper, Trace,
-                  _normalize_blocked, check_engine, pow2ceil, stack_leaves,
-                  window_counters, window_spans)
+                  _normalize_blocked, check_engine, plan_windows, pow2ceil,
+                  stack_leaves, window_counters, window_spans)
 
 # The reference compiles one program per distinct signature; this set
 # holds the signatures its sweeps would have compiled (see compile_count).
@@ -95,6 +110,89 @@ def stack_policies(policies: Sequence[PolicyConfig], device=None
     return stack_leaves(policies, device)
 
 
+@dataclasses.dataclass(frozen=True)
+class LaneMesh:
+    """A 1-D ``"lanes"`` mesh: the devices a sweep's lane axis is split
+    over, block ``i`` of the lanes on ``devices[i]``."""
+    devices: Tuple[torch.device, ...]
+    axis_names: Tuple[str, ...] = ("lanes",)
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+
+def lane_mesh(n_lanes: int, devices=None) -> LaneMesh:
+    """A 1-D ``"lanes"`` mesh over the largest device prefix dividing
+    ``n_lanes`` (every device on an evenly divisible lane count; one
+    device — the degenerate mesh — when nothing divides).  ``devices``
+    defaults to the visible CUDA devices (raises without one)."""
+    if devices is None:
+        resolve_device(None)
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [torch.device(d) for d in devices]
+    n = len(devices)
+    while n > 1 and n_lanes % n:
+        n -= 1
+    return LaneMesh(tuple(devices[:n]))
+
+
+def check_lane_sharding(lane_sharding) -> None:
+    """Raises unless ``lane_sharding`` is ``None``, ``"auto"`` or a
+    :class:`LaneMesh`."""
+    if not (lane_sharding is None or isinstance(lane_sharding, LaneMesh)
+            or (isinstance(lane_sharding, str) and lane_sharding == "auto")):
+        raise ValueError(f"lane_sharding must be None, 'auto' or a "
+                         f"LaneMesh, got {lane_sharding!r}")
+
+
+def _resolve_lane_sharding(lane_sharding, n_lanes: int,
+                           device) -> Optional[LaneMesh]:
+    check_lane_sharding(lane_sharding)
+    if lane_sharding is None:
+        return None
+    if isinstance(lane_sharding, str) and lane_sharding == "auto":
+        dev = resolve_device(device)
+        return lane_mesh(n_lanes, None if dev.type == "cuda" else [dev])
+    if n_lanes % lane_sharding.size:
+        raise ValueError(f"{n_lanes} lanes not divisible by the "
+                         f"{lane_sharding.size}-device lane mesh")
+    return lane_sharding
+
+
+class LaneMeshRunner:
+    """The engines of a lane mesh, one per device over its block of lanes,
+    as one run in progress: :meth:`advance` moves them in lockstep,
+    :meth:`results` gives a RunResult per lane in lane order.  ``plan``
+    is the window plan of the lanes' union schedule (the reference's one
+    program over all lanes), for telemetry; each engine runs its own."""
+
+    def __init__(self, runners, plan):
+        self.runners = runners
+        self.plan = plan
+
+    @staticmethod
+    def _left(r) -> int:
+        if isinstance(r, BlockedRunner):
+            return r.plan.n_windows - r.w
+        return r.n_steps - r.s
+
+    def advance(self, n: Optional[int] = None) -> "LaneMeshRunner":
+        """The next ``n`` windows (steps, for the per-step engine) of
+        every engine, one at a time each in turn; all that are left by
+        default."""
+        left = max(self._left(r) for r in self.runners)
+        for _ in range(left if n is None else min(int(n), left)):
+            for r in self.runners:
+                if self._left(r):
+                    r.advance(1)
+        return self
+
+    def results(self) -> "list[RunResult]":
+        return [res for r in self.runners for res in r.results()]
+
+
 def sweep_lanes(mc: MachineConfig,
                 ccs: Sequence[CostConfig],
                 policies: Sequence[PolicyConfig],
@@ -117,9 +215,10 @@ def sweep_lanes(mc: MachineConfig,
     ``autonuma_budget``, ``group`` the allocator's conflict-group bound
     above the lanes' own; neither changes a result.  ``engine`` / ``block``
     select the stepper (see ``core.sim``); the per-step engine and the
-    sequential fault path need ``debug=True``.  ``lane_sharding`` must be
-    ``None`` (one device).  ``telemetry``: see the module's docstring.
-    ``device`` (``None``: the CUDA device) holds the lanes' state.
+    sequential fault path need ``debug=True``.  ``lane_sharding``: ``None``,
+    ``"auto"`` or a :class:`LaneMesh` (see the module's docstring).
+    ``telemetry``: see the module's docstring.  ``device`` (``None``: the
+    CUDA device) holds the lanes' state when there is no lane mesh.
     """
     tel = or_null(telemetry)
     runner = sweep_runner(mc, ccs, policies, traces, phase_b=phase_b,
@@ -164,36 +263,66 @@ def sweep_runner(mc: MachineConfig,
     tel = or_null(telemetry)
     prep_t0 = tel.now()
     check_engine(engine, phase_b, debug)
-    if lane_sharding is not None:
-        raise ValueError(f"lane_sharding must be None: the port runs its "
-                         f"lanes on one device, got {lane_sharding!r}")
     if len(policies) == 0:
         raise ValueError("sweep_lanes needs at least one lane")
+    mesh = _resolve_lane_sharding(lane_sharding, len(policies), device)
+
     # the engine checks the lanes, their traces and the overrides
-    kw = dict(phase_b=phase_b, device=device, budget=budget, group=group)
-    if engine == "blocked":
-        runner = BlockedRunner(mc, ccs, policies, traces, block=block, **kw)
-        stp, eff_block, geom = runner.stepper, runner.block, runner.plan.geom
-        program = runner.plan.n_windows
+    def engine_of(lanes, dev):
+        kw = dict(phase_b=phase_b, device=dev, budget=budget, group=group)
+        args = (ccs[lanes], policies[lanes], traces[lanes])
+        if engine == "blocked":
+            return BlockedRunner(mc, *args, block=block, **kw)
+        return Stepper(mc, *args, **kw)
+
+    def stepper_of(r):
+        return r.stepper if engine == "blocked" else r
+
+    ccs, policies, traces = list(ccs), list(policies), list(traces)
+    L = len(policies)
+    if mesh is None:
+        runner = engine_of(slice(None), device)
+        parts = [stepper_of(runner)]
     else:
-        runner = stp = Stepper(mc, ccs, policies, traces, **kw)
-        eff_block = min(int(block), pow2ceil(stp.n_steps))
-        geom, program = None, stp.n_steps
-    eff_group = stp.group if phase_b == "batched" else None
-    sig = (stp.budget, phase_b, eff_group)
+        if not len(ccs) == len(traces) == L:
+            raise ValueError(f"lane lists disagree: {len(ccs)} costs, "
+                             f"{L} policies, {len(traces)} traces")
+        per = L // mesh.size
+        parts_r = [engine_of(slice(i * per, (i + 1) * per), d)
+                   for i, d in enumerate(mesh.devices)]
+        parts = [stepper_of(r) for r in parts_r]
+    n_steps = parts[0].n_steps
+    eff_block = min(int(block), pow2ceil(n_steps))
+    eff_budget = max(p.budget for p in parts)
+    eff_group = max(p.group for p in parts) if phase_b == "batched" \
+        else None
+    plan, geom, program = None, None, n_steps
+    if engine == "blocked":
+        if mesh is None:
+            plan = runner.plan
+        else:        # the one program's plan, over the union of all lanes
+            def union(attr):
+                return np.logical_or.reduce([getattr(p, attr) for p in parts])
+            plan = plan_windows(union("do_free"), union("do_scan"),
+                                union("has_fault"), n_steps, eff_block)
+        geom, program = plan.geom, plan.n_windows
+    if mesh is not None:
+        runner = LaneMeshRunner(parts_r, plan)
+    sig = (eff_budget, phase_b, eff_group)
     if engine == "blocked":
         sig = _normalize_blocked(*sig, geom)
-    _SIGNATURES.add((mc, *sig, engine, eff_block, geom, stp.L, program))
+    _SIGNATURES.add((mc, *sig, engine, eff_block, geom, L, program,
+                     None if mesh is None else mesh.size))
     if tel.enabled:
         tel.counter("sweep.calls", engine=engine).inc()
-        tel.counter("sweep.lanes", engine=engine).inc(stp.L)
+        tel.counter("sweep.lanes", engine=engine).inc(L)
         if engine == "blocked":
-            window_counters(tel, "sweep", runner.plan)
+            window_counters(tel, "sweep", plan)
         else:
-            tel.counter("sweep.steps").inc(stp.n_steps)
+            tel.counter("sweep.steps").inc(n_steps)
         if prep_t0 is not None:
             tel.add_span("sweep.prepare", prep_t0, tel.now(), cat="engine",
-                         args={"lanes": stp.L, "steps": stp.n_steps,
+                         args={"lanes": L, "steps": n_steps,
                                "engine": engine})
     return runner
 

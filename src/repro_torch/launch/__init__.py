@@ -1,4 +1,5 @@
 """Launch layer (twin of the JAX package's ``launch``): ``analysis``
-(analytic step FLOPs, the policy-sweep summary) and ``train`` (the
-training launcher); the mesh and the dry run wait for the distributed
-slice."""
+(analytic step FLOPs, the collective parser, the policy-sweep summary),
+``mesh`` (the production and host meshes), ``train`` (the training
+launcher) and ``dryrun`` (one rank's step of every cell on a fake
+process group)."""

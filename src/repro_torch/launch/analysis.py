@@ -1,10 +1,54 @@
-"""Analytic step FLOPs and the policy-sweep summary (twin of the JAX
-package's ``launch/analysis.py``).  ``parse_collectives``, which reads
-XLA's HLO text, comes with the distributed port.
+"""Collective traffic, analytic step FLOPs and the policy-sweep summary
+(twin of the JAX package's ``launch/analysis.py``).
 
-Importable without touching the device: the broker is made on first use.
+The reference reads its collectives from XLA's SPMD HLO text; the port
+records the functional collectives DTensor issues on the local shards
+(``launch.dryrun.StepRecorder``, a ``TorchDispatchMode``) and
+:func:`parse_collectives` reads those records under XLA's op names with
+the reference's ring model.
+
+Importable without touching the device or any process group: the broker
+is made on first use.
 """
 from __future__ import annotations
+
+# torch's functional collectives -> XLA's op names
+XLA_OP = {"all_reduce": "all-reduce", "all_reduce_coalesced": "all-reduce",
+          "all_gather_into_tensor": "all-gather",
+          "all_gather_into_tensor_coalesced": "all-gather",
+          "reduce_scatter_tensor": "reduce-scatter",
+          "reduce_scatter_tensor_coalesced": "reduce-scatter",
+          "all_to_all_single": "all-to-all"}
+XLA_OPS = ("all-reduce", "all-gather", "reduce-scatter", "all-to-all",
+           "collective-permute")
+
+
+def parse_collectives(records):
+    """Per-device collective traffic estimate from the recorded
+    collectives: ``(op, result_bytes, group_size)`` each, ``op`` a
+    functional collective's name or XLA's.
+
+    Ring-model bytes-on-wire per device: all-gather / reduce-scatter /
+    all-to-all move (g-1)/g of the full buffer; all-reduce moves 2x that;
+    collective-permute moves the buffer once.
+    """
+    out = {}
+    for op, nbytes, g in records:
+        op = XLA_OP.get(op, op)
+        if op not in XLA_OPS:
+            continue
+        frac = (g - 1) / g
+        if op == "all-reduce":
+            traffic = 2 * nbytes * frac
+        elif op == "collective-permute":
+            traffic = nbytes
+        else:
+            traffic = nbytes * frac
+        d = out.setdefault(op, {"count": 0, "bytes": 0.0, "traffic": 0.0})
+        d["count"] += 1
+        d["bytes"] += nbytes
+        d["traffic"] += traffic
+    return out
 
 
 def model_flops(cfg, shape) -> float:
@@ -22,12 +66,13 @@ _BROKER = None
 
 
 def _default_broker():
-    """Shared simulation-service broker for analysis helpers, on the CUDA
-    device (one device: the port's broker has no lane sharding)."""
+    """Shared simulation-service broker for analysis helpers, its lanes
+    sharded over the visible CUDA devices (lazy: keeps this module
+    importable without touching the device)."""
     global _BROKER
     if _BROKER is None:
         from ..service import SimBroker
-        _BROKER = SimBroker(max_lanes=64)
+        _BROKER = SimBroker(max_lanes=64, lane_sharding="auto")
     return _BROKER
 
 

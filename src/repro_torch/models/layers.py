@@ -24,8 +24,9 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from .modules import remat
+from .modules import on_head_shards, remat
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -157,8 +158,13 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
     kv chunks takes the place of the reference's two ``lax.scan``s; under
     autograd both bodies are rematerialized, as the reference's "double
     remat" (the backward keeps only each step's inputs, never the
-    [Cq, Ck] probabilities of every chunk pair).
+    [Cq, Ck] probabilities of every chunk pair).  DTensors (the mesh
+    path) run it on each rank's batch and head shards.
     """
+    if isinstance(q, DTensor):
+        return on_head_shards(functools.partial(
+            chunked_attention, causal=causal, q_chunk=q_chunk,
+            kv_chunk=kv_chunk), q, k, v, k.shape[2])
     B, S, H, Dh = q.shape
     KH = k.shape[2]
     G = H // KH

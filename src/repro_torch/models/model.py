@@ -27,7 +27,8 @@ from ..configs.base import ArchConfig, torch_dtype
 from ..device import resolve_device
 from . import layers, mamba as mamba_mod, moe as moe_mod, rwkv as rwkv_mod
 from .modules import (REMAT_POLICIES, ParamSpec, abstract_params,
-                      init_params, remat, tree_leaves, tree_map)
+                      init_params, merge_heads, remat, split_heads,
+                      tree_leaves, tree_map, whole)
 
 F32 = torch.float32
 
@@ -212,9 +213,9 @@ def _attn_full(cfg: ArchConfig, w, x, positions, mrope_pos=None):
     B, S, D = x.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _qkv(cfg, w, x)
-    q = q.reshape(B, S, H, Dh)
-    k = k.reshape(B, S, KH, Dh)
-    v = v.reshape(B, S, KH, Dh)
+    q = split_heads(q, H, Dh, KH)
+    k = split_heads(k, KH, Dh, KH)
+    v = split_heads(v, KH, Dh, KH)
     if cfg.rope == "rope":
         q = layers.apply_rope(q, positions)
         k = layers.apply_rope(k, positions)
@@ -222,7 +223,7 @@ def _attn_full(cfg: ArchConfig, w, x, positions, mrope_pos=None):
         q = layers.apply_mrope(q, mrope_pos)
         k = layers.apply_mrope(k, mrope_pos)
     out = layers.chunked_attention(q, k, v, causal=not cfg.encoder_only)
-    return out.reshape(B, S, H * Dh) @ w["wo"], (k, v)
+    return merge_heads(out) @ w["wo"], (k, v)
 
 
 def _apply_group_full(cfg: ArchConfig, kinds, gparams, x, positions,
@@ -305,14 +306,15 @@ def forward(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
         x = act_constraint(x)
 
     def group_fn(gparams, x):
-        return _apply_group_full(cfg, kinds, gparams, x, positions,
-                                 mrope_pos, collect_kv)
+        y, aux, kv = _apply_group_full(cfg, kinds, gparams, x, positions,
+                                       mrope_pos, collect_kv)
+        if act_constraint is not None:
+            y = act_constraint(y)
+        return y, aux, kv
 
     auxs, kvs = [], []
     for gparams in _groups(params["layers"]):
         x, aux, kv = remat(group_fn, gparams, x, policy=remat_policy)
-        if act_constraint is not None:
-            x = act_constraint(x)
         auxs.append(aux)
         kvs.append(kv)
     x = _norm(cfg, params["final_norm"], "final", x)
@@ -324,7 +326,7 @@ def forward(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
 
 def _loss_chunk(head, hc, tc):
     """Summed cross entropy of one chunk: hc [B, C, D], tc [B, C]."""
-    logits = (hc @ head).to(F32)
+    logits = whole((hc @ head).to(F32), -1)
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, tc[..., None].long())[..., 0]
     return (lse - picked).sum()
@@ -458,9 +460,9 @@ def decode_step(cfg: ArchConfig, params, state: Dict, tokens,
             h = _norm(cfg, p, "norm1", x)
             if mixer == "attn":
                 q, k, v = _qkv(cfg, p["attn"], h)
-                q = q.reshape(B, H, Dh)
-                k = k.reshape(B, KH, Dh)
-                v = v.reshape(B, KH, Dh)
+                q = split_heads(q, H, Dh, KH)
+                k = split_heads(k, KH, Dh, KH)
+                v = split_heads(v, KH, Dh, KH)
                 if cfg.rope in ("rope", "mrope"):
                     # decode positions are text positions; M-RoPE with equal
                     # (t, h, w) components reduces exactly to RoPE
@@ -470,7 +472,7 @@ def decode_step(cfg: ArchConfig, params, state: Dict, tokens,
                 _write_at(k_cache, pos, k)
                 _write_at(v_cache, pos, v)
                 y = layers.decode_attention(q, k_cache, v_cache, length=length)
-                y = y.reshape(B, H * Dh) @ p["attn"]["wo"]
+                y = merge_heads(y) @ p["attn"]["wo"]
             elif mixer == "mamba":
                 st = {"conv": full["conv"][g], "ssm": full["ssm"][g]}
                 ns, y = mamba_mod.mamba_decode(p["mamba"], st, h)

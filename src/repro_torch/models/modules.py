@@ -11,7 +11,11 @@ declaration we derive:
   * ``init_params``      — real tensors from a ``torch.Generator``,
   * ``logical_axes_tree`` / ``count_params``,
 
-and ``remat``, the reference's ``jax.remat`` under autograd.
+and ``remat``, the reference's ``jax.remat`` under autograd; ``whole``
+and ``split_heads`` / ``merge_heads`` gather a dim of a DTensor where an
+op has no sharding rule across it, and ``on_head_shards`` runs attention
+on each rank's batch and head shards (plain tensors pass through all four
+as they are).
 """
 from __future__ import annotations
 
@@ -21,6 +25,7 @@ import math
 from typing import Callable, Optional, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
@@ -134,3 +139,70 @@ def remat(fn: Callable, *args, policy: str = "full"):
             create_selective_checkpoint_contexts, _dots_saveable)
     return checkpoint(fn, *args, use_reentrant=False,
                       preserve_rng_state=False, **kw)
+
+
+def whole(x, dim: int):
+    """``x`` with tensor dim ``dim`` whole on every rank, where ``x`` is a
+    DTensor sharded across it (the mesh path, at an op DTensor has no
+    sharding rule for across that dim); anything else as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    dim %= x.dim()
+    pl = [Replicate() if isinstance(p, Shard) and p.dim == dim else p
+          for p in x.placements]
+    return x if pl == list(x.placements) else x.redistribute(
+        x.device_mesh, pl)
+
+
+def split_heads(x, n: int, d: int, groups: int):
+    """x [..., n*d] -> [..., n, d], the heads later split into ``groups``
+    groups (``groups`` divides ``n``).  A DTensor sharded across its last
+    dim into a count of shards that does not divide ``groups`` has that
+    dim gathered first: DTensor shards a split dim only through its
+    leading part, as GSPMD would move the rest of the split into ``d``."""
+    if isinstance(x, DTensor):
+        k = math.prod(x.device_mesh.size(i)
+                      for i, p in enumerate(x.placements)
+                      if isinstance(p, Shard) and p.dim == x.dim() - 1)
+        if groups % k:
+            x = whole(x, -1)
+    return x.reshape(tuple(x.shape[:-1]) + (n, d))
+
+
+def on_head_shards(fn: Callable, q, k, v, n_kv: int):
+    """``fn(q, k, v)`` (attention: q [B, S, H, Dh], k / v [B, S, n_kv, Dh],
+    a result shaped as q) on each rank's shards of the DTensors q, k, v:
+    the batch and the heads stay sharded as q's are (the heads only where
+    their shard count divides ``n_kv``, so that each rank holds whole GQA
+    groups), every other dim is gathered, and the result is laid out as
+    those shards.  The local ops are the one-device path's."""
+    mesh = q.device_mesh
+    pl = [p if isinstance(p, Shard) and p.dim in (0, 2) else Replicate()
+          for p in q.placements]
+
+    def count(dim):
+        return math.prod(mesh.size(i) for i, p in enumerate(pl)
+                         if isinstance(p, Shard) and p.dim == dim)
+    if n_kv % count(2):
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == 2 else p
+              for p in pl]
+    if q.shape[0] % count(0):
+        pl = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
+              for p in pl]
+    q, k, v = (x.redistribute(mesh, pl) for x in (q, k, v))
+    out = fn(q.to_local(), k.to_local(), v.to_local())
+    shape = tuple(q.shape)
+    return DTensor.from_local(
+        out, mesh, pl, shape=torch.Size(shape),
+        stride=tuple(math.prod(shape[i + 1:]) for i in range(len(shape))))
+
+
+def merge_heads(x):
+    """x [..., n, d] -> [..., n*d].  A DTensor's result is pinned to its
+    forward layout, so that the backward pass's grad of the merged dim
+    comes back in a layout the reshape can split again (DTensor shards a
+    split dim only through its leading part)."""
+    y = x.reshape(tuple(x.shape[:-2]) + (-1,))
+    if isinstance(y, DTensor):
+        y = y.redistribute(y.device_mesh, y.placements)
+    return y

@@ -17,7 +17,7 @@ from typing import Dict
 import torch
 import torch.nn.functional as F
 
-from .modules import ParamSpec, remat
+from .modules import ParamSpec, merge_heads, remat, split_heads
 
 F32 = torch.float32
 HEAD = 64  # RWKV6 fixed head size
@@ -94,7 +94,7 @@ def _group_norm_out(w, y, g, dtype):
     """Per-head group norm of y [..., H, 64] (f32), then gate and project."""
     mu = y.mean(dim=-1, keepdim=True)
     var = y.var(dim=-1, keepdim=True, unbiased=False)
-    y = ((y - mu) * torch.rsqrt(var + 1e-5)).flatten(-2)
+    y = merge_heads((y - mu) * torch.rsqrt(var + 1e-5))
     y = y * w["ln_scale"] * g
     return y.to(dtype) @ w["w_o"]
 
@@ -122,11 +122,11 @@ def time_mix_apply(w, x, *, chunk: int = 256):
     if S % chunk:
         raise ValueError(f"S={S} is not a multiple of chunk {chunk}")
 
-    rh = r.reshape(B, S, H, HEAD).to(F32)
-    kh = k.reshape(B, S, H, HEAD).to(F32)
-    vh = v.reshape(B, S, H, HEAD).to(F32)
-    wh = decay.reshape(B, S, H, HEAD)
-    u = w["bonus_u"].reshape(H, HEAD)
+    rh = split_heads(r, H, HEAD, H).to(F32)
+    kh = split_heads(k, H, HEAD, H).to(F32)
+    vh = split_heads(v, H, HEAD, H).to(F32)
+    wh = split_heads(decay, H, HEAD, H)
+    u = split_heads(w["bonus_u"], H, HEAD, H)
     st = torch.zeros((B, H, HEAD, HEAD), dtype=F32, device=x.device)
     ys = []
     for c in range(S // chunk):
@@ -144,11 +144,11 @@ def time_mix_decode(w, state, x_prev, x):
     B, D = x.shape
     H = D // HEAD
     r, k, v, g, decay = _mix_inputs(w, x, x_prev.to(x.dtype))
-    rh = r.reshape(B, H, HEAD).to(F32)
-    kh = k.reshape(B, H, HEAD).to(F32)
-    vh = v.reshape(B, H, HEAD).to(F32)
-    wh = decay.reshape(B, H, HEAD)
-    u = w["bonus_u"].reshape(H, HEAD)
+    rh = split_heads(r, H, HEAD, H).to(F32)
+    kh = split_heads(k, H, HEAD, H).to(F32)
+    vh = split_heads(v, H, HEAD, H).to(F32)
+    wh = split_heads(decay, H, HEAD, H)
+    u = split_heads(w["bonus_u"], H, HEAD, H)
     kv = kh[..., :, None] * vh[..., None, :]
     y = torch.einsum("bhk,bhkv->bhv", rh, state + u[..., :, None] * kv)
     state = wh[..., :, None] * state + kv

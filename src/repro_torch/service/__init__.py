@@ -9,8 +9,9 @@ the same modules and public names).
   * :class:`SimBroker` — admission-queues queries, buckets them by
     (machine, engines, trace shape, scan period), microbatches each
     bucket into a single ``repro_torch.core.sweep_lanes`` call across the
-    lane axis on its one device (the CUDA device unless the caller passes
-    ``device="cpu"``), and resolves per-query futures.  A
+    lane axis (on its device, the CUDA device unless the caller passes
+    ``device="cpu"``, or sharded over devices with ``lane_sharding``),
+    and resolves per-query futures.  A
     content-addressed result cache answers repeats with no device work
     and no kernel launch.
   * :mod:`repro_torch.service.search` — a client-side search driver

@@ -82,7 +82,7 @@ import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 from ..core.sweep import compile_count as sweep_compile_count
-from ..core.sweep import sweep_lanes
+from ..core.sweep import check_lane_sharding, sweep_lanes
 from ..core.config import MIG_POLICY_NAMES, MachineConfig
 from ..core.sim import RunResult, Trace, pow2ceil as _pow2ceil
 from ..core.workloads import TraceSpec
@@ -169,9 +169,10 @@ class SimBroker:
     max_lanes      microbatch capacity per bucket (flush-when-full).
     max_wait       seconds a query may age in an open bucket before
                    ``pump()`` flushes it (the max-wait microbatch flush).
-    lane_sharding  must be ``None``: the port runs a flush's lanes on one
-                   device (refused here, with ``sweep_lanes``'s message,
-                   rather than at every flush).
+    lane_sharding  passed through to ``sweep_lanes`` — ``None``,
+                   ``"auto"`` (shard the lane axis over the visible CUDA
+                   devices, or the broker's one device when that is not
+                   CUDA), or an explicit ``core.sweep.LaneMesh``.
     pad_steps_floor  smallest power-of-two step count specs are padded
                    to (raw ``Trace`` queries are never reshaped — the
                    caller owns their shape and bucket).
@@ -212,9 +213,7 @@ class SimBroker:
                  injector=None, flight=None, sleep=time.sleep, device=None):
         if max_lanes < 1:
             raise ValueError("max_lanes must be >= 1")
-        if lane_sharding is not None:
-            raise ValueError(f"lane_sharding must be None: the port runs its "
-                             f"lanes on one device, got {lane_sharding!r}")
+        check_lane_sharding(lane_sharding)
         self.device = resolve_device(device)
         self.max_lanes = max_lanes
         self.max_wait = max_wait

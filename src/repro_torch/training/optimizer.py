@@ -9,8 +9,16 @@ step, no float64).  :func:`adamw_update` writes the params and moments in
 place under ``torch.no_grad()`` (the reference donates them to its jitted
 step) and returns the same trees.
 
-One device: the reference's ZeRO-1 sharding of the moments (``zero1``)
-waits for the distributed slice; ``OptConfig`` keeps the field.
+On a mesh the leaves are DTensors (``distributed.sharding``): the
+moments shard like their params, the global norm is a replicated scalar,
+and the step counter is a replicated 0-dim DTensor whose local value
+drives the schedule and the bias corrections (plain tensors, the same on
+every rank); the caller runs the update under DTensor's
+``implicit_replication`` (``training.train`` does).
+
+``zero1`` is a field that nothing reads, as in the reference (whose
+docstring promises a ZeRO-1 sharding of the moments that its code never
+applies).
 """
 from __future__ import annotations
 
@@ -19,6 +27,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from ..libm import powf
 from ..models.modules import tree_leaves, tree_map
@@ -133,6 +142,12 @@ def clip_by_global_norm(grads, max_norm: float):
     return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), grads), norm
 
 
+def _local(t: torch.Tensor) -> torch.Tensor:
+    """A replicated DTensor's local value (the same on every rank); a
+    plain tensor as it is."""
+    return t.to_local() if isinstance(t, DTensor) else t
+
+
 def _bias_correction(b: float, step: torch.Tensor) -> torch.Tensor:
     """``1 - b ** step`` in f32 on the step's device (glibc's ``powf``,
     as the reference's)."""
@@ -145,7 +160,7 @@ def adamw_update(cfg: OptConfig, params, grads, opt_state):
     trees, with the params, moments and step written."""
     if cfg.factored:
         return _factored_update(cfg, params, grads, opt_state)
-    step = opt_state["step"] + 1
+    step = _local(opt_state["step"]) + 1
     lr = schedule(cfg, step)
     b1, b2 = _f32(cfg.b1), _f32(cfg.b2)
     one_b1, one_b2 = _f32(1 - cfg.b1), _f32(1 - cfg.b2)
@@ -165,13 +180,13 @@ def adamw_update(cfg: OptConfig, params, grads, opt_state):
         v.copy_(v_new)
 
     tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
-    opt_state["step"].copy_(step)
+    _local(opt_state["step"]).copy_(step)
     return params, opt_state
 
 
 @torch.no_grad()
 def _factored_update(cfg: OptConfig, params, grads, opt_state):
-    step = opt_state["step"] + 1
+    step = _local(opt_state["step"]) + 1
     lr = schedule(cfg, step)
     b1, b2 = _f32(cfg.b1), _f32(cfg.b2)
     one_b1, one_b2 = _f32(1 - cfg.b1), _f32(1 - cfg.b2)
@@ -201,5 +216,5 @@ def _factored_update(cfg: OptConfig, params, grads, opt_state):
 
     tree_map(upd, params, grads, opt_state["m"], opt_state["vr"],
              opt_state["vc"])
-    opt_state["step"].copy_(step)
+    _local(opt_state["step"]).copy_(step)
     return params, opt_state

@@ -149,9 +149,19 @@ def test_launcher_matches_the_jax_launcher(tmp_path, monkeypatch, capsys):
     assert int(got["opt/step"]) == int(want["opt/step"]) == 3
 
 
-def test_mesh_flags_name_the_distributed_slice():
+def test_mesh_flags_name_the_distributed_slice(monkeypatch, capsys):
+    """``--data 1 --model 1`` is the one-device loop (the reference's (1,
+    1) mesh replicates everything), and a mesh of more ranks outside
+    ``torchrun`` raises, naming the command that starts it (the mesh
+    itself: tests/test_torch_distributed.py)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    a = launch.main(ARGS + ["--steps", "2"])
+    b = launch.main(ARGS + ["--steps", "2", "--data", "1", "--model", "1"])
+    assert a == b
+    out = capsys.readouterr().out
+    assert out.count("step 2: loss") == 2
     for flag in (["--data", "2"], ["--model", "4"]):
-        with pytest.raises(ValueError, match="distributed slice"):
+        with pytest.raises(ValueError, match="torchrun --nproc-per-node"):
             launch.main(ARGS + ["--steps", "1"] + flag)
 
 

@@ -16,7 +16,8 @@ Not twinned here: ``test_policy_sweep_summary_routes_through_broker``
 (``launch.analysis``, part of the model stack) and
 ``test_service_throughput_quick_smoke`` (the benchmark twin), which wait
 for those modules.  The reference's two-device sharding test becomes the
-broker's refusal of ``lane_sharding`` (the port runs one device).
+broker's ``lane_sharding`` on one device ("auto" taken, anything else
+refused).
 """
 import dataclasses
 import os
@@ -615,17 +616,23 @@ def test_reference_spill_entry_reads_as_a_miss_in_the_port(tmp_path):
 
 
 # ---------------------------------------------------------------------------
-# one device: lane sharding is refused
+# one device: "auto" is the degenerate lane mesh, anything else is refused
 # ---------------------------------------------------------------------------
 @pytest.mark.parametrize("sharding", ["auto", object()])
 def test_lane_sharding_refused_on_one_device(sharding):
-    """The reference shards lanes over devices; the port runs one device
-    and refuses a ``lane_sharding`` when the broker is made, with
+    """On one device the broker takes ``lane_sharding="auto"`` (the lane
+    mesh of that device, bitwise equal to no sharding) and refuses what is
+    neither ``None``, ``"auto"`` nor a ``LaneMesh`` when it is made, with
     ``sweep_lanes``'s message, instead of failing every flush."""
-    with pytest.raises(ValueError, match="lane_sharding must be None"):
-        broker(lane_sharding=sharding)
     mc = tiny_machine()
     tr = random_trace(mc, seed=15)
+    q = [SimQuery(trace=tr, policy=MIXED_POLICIES[0], machine=mc)]
+    if sharding == "auto":
+        got = broker(lane_sharding=sharding).run(q)
+        assert_bitwise(got[0], broker().run(q)[0], "auto vs None")
+        return
+    with pytest.raises(ValueError, match="lane_sharding must be None"):
+        broker(lane_sharding=sharding)
     with pytest.raises(ValueError, match="lane_sharding must be None"):
         tc.sweep_lanes(mc, [tc.CostConfig()], [MIXED_POLICIES[0]], [tr],
                        lane_sharding=sharding, device="cpu")

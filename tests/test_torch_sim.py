@@ -329,9 +329,8 @@ def fields(state, prefix=""):
 
 
 def test_core_exports_the_jax_core_less_the_sweeps():
-    # the sweeps are ported; the lane mesh is left out (one device)
-    not_yet = {"lane_mesh"}
-    assert set(tc.__all__) == set(jc.__all__) - not_yet
+    # the sweeps and the lane mesh are ported: nothing is left out
+    assert set(tc.__all__) == set(jc.__all__)
     assert all(hasattr(tc, name) for name in tc.__all__)
 
 

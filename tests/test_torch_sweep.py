@@ -12,7 +12,8 @@ tests/test_split_windows.py, at their sizes.  Every lane must equal:
   ``CYCLE_KEYS`` to ``rtol=1e-5``).
 
 Also: per-lane ``CostConfig``s, the ``budget`` / ``group`` overrides, the
-``debug`` gate, the refusal of ``lane_sharding`` and ``compile_count``.
+``debug`` gate, ``lane_sharding`` ("auto" on one device, an unknown
+one refused) and ``compile_count``.
 """
 import dataclasses
 
@@ -314,10 +315,12 @@ def test_debug_gate_and_one_device():
             port_sweep(mc, cc, POLICIES[:2], trace, **kw)
     with pytest.raises(ValueError, match="unknown engine"):
         port_sweep(mc, cc, POLICIES[:2], trace, engine="fast", debug=True)
-    for sharding in ("auto", object()):
-        with pytest.raises(ValueError, match="lane_sharding"):
-            port_sweep(mc, cc, POLICIES[:2], trace, lane_sharding=sharding)
+    with pytest.raises(ValueError, match="lane_sharding"):
+        port_sweep(mc, cc, POLICIES[:2], trace, lane_sharding=object())
+    # "auto" on the CPU is the degenerate lane mesh of one device
+    auto = port_sweep(mc, cc, POLICIES[:2], trace, lane_sharding="auto")
     a = port_sweep(mc, cc, POLICIES[:2], trace, engine="per_step", debug=True)
     b = port_sweep(mc, cc, POLICIES[:2], trace)
-    for x, y in zip(a, b):
+    for x, y, z in zip(a, b, auto):
         assert_bitwise(x, y, "per-step vs blocked")
+        assert_bitwise(z, y, "lane mesh of one vs plain")

@@ -35,6 +35,8 @@ Tolerances, stated once:
   (``test_bf16_grads_match_the_reference_op_by_op``).
 """
 
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -510,13 +512,57 @@ def test_microbatching_matches_full_batch():
 # ---------------------------------------------------------------------------
 # one device
 # ---------------------------------------------------------------------------
-def test_mesh_options_name_the_distributed_slice():
-    cfg = configs.reduced(configs.get_config("qwen1.5-0.5b"))
-    for kw, tc in ((dict(mesh=object()), ttrain.TrainConfig()),
-                   ({}, ttrain.TrainConfig(seq_shard=True)),
-                   ({}, ttrain.TrainConfig(compress_grads="int8"))):
-        with pytest.raises(ValueError, match="distributed slice"):
-            ttrain.make_train_step(cfg, tc, device="cpu", **kw)
+def test_mesh_options_name_the_distributed_slice(tmp_path):
+    """The options that once waited for the distributed slice run: on a
+    one-rank gloo (1, 1) mesh, ``make_train_step(mesh=...)`` with
+    ``seq_shard`` and two microbatches (every placement replicated, the
+    batch sharded over a DP axis of 1) equals the one-device step
+    bitwise, and so does ``make_compressed_train_step`` without
+    compression; with ``compress_grads="int8"`` the grads move by at most
+    half a quantum of their scale, so the params stay within ``2 lr``."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as sh
+    cfg = dataclasses.replace(
+        configs.reduced(configs.get_config("qwen1.5-0.5b")), dtype="float32")
+    dc = DataConfig(vocab=cfg.vocab, seq_len=32, global_batch=4)
+    batch = batch_at(dc, 0, device="cpu")
+    opt = topt.OptConfig(lr=1e-3, warmup_steps=1)
+    base = models.make_params(cfg, torch.Generator().manual_seed(0), "cpu")
+
+    def fresh():
+        p = tree_map(lambda a: a.clone(), base)
+        return p, topt.init_opt_state(p)
+
+    tc = ttrain.TrainConfig(microbatches=2, seq_shard=True, opt=opt)
+    want = ttrain.make_train_step(cfg, tc, device="cpu")(*fresh(), batch)
+    plain = ttrain.make_train_step(cfg, ttrain.TrainConfig(opt=opt),
+                                   device="cpu")(*fresh(), batch)
+    dist.init_process_group("gloo", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        mesh = sh.make_mesh((1, 1), ("data", "model"), "cpu")
+        specs = models.param_specs(cfg)
+        p, st = fresh()
+        p = sh.distribute(p, sh.param_shardings(specs, mesh))
+        st = sh.distribute(st, sh.opt_state_shardings(specs, mesh))
+        got = ttrain.make_train_step(cfg, tc, mesh)(p, st, batch)
+        comp = {c: ttrain.make_compressed_train_step(
+            cfg, ttrain.TrainConfig(compress_grads=c, opt=opt), mesh)(
+                *fresh(), batch) for c in (None, "int8")}
+    finally:
+        dist.destroy_process_group()
+    assert all(isinstance(x, DTensor) for x in tree_leaves(got[0]))
+    assert float(got[2]["loss"]) == float(want[2]["loss"])
+    for a, b in zip(tree_leaves(got[0]), tree_leaves(want[0])):
+        assert torch.equal(a.full_tensor(), b)
+    for a, b in zip(tree_leaves(comp[None][0]), tree_leaves(plain[0])):
+        assert torch.equal(a, b)
+    assert float(comp[None][2]["loss"]) == float(plain[2]["loss"])
+    lr = float(plain[2]["lr"])
+    err = max(float((a - b).abs().max()) for a, b in
+              zip(tree_leaves(comp["int8"][0]), tree_leaves(plain[0])))
+    assert 0 < err <= 2 * lr + 1e-6, err
 
 
 def test_train_step_runs_on_cuda_by_default(monkeypatch):
