@@ -93,8 +93,8 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    exact, its f32 keys bitwise or else to rtol 1e-6, and which held is
    printed) and against the port's own CPU route (worker processes, each
    waited for; the script checks that it leaves no child running), field
-   for field over the final state and the timeline, at footprint 2^12 and
-   384 run steps: tests/test_core_oracle.py's six policies on
+   for field over the final state and the timeline, at footprint 2^11 and
+   448 run steps: tests/test_core_oracle.py's six policies on
    ``benchmark_machine()``, ``tpp()`` and ``nomad()`` on ``cxl_machine()``;
    then sweeps at that size, each lane bitwise against its solo blocked
    run (the loop under the sync check, ``alloc_scan`` launches == the
@@ -111,7 +111,7 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    plan's, a valid trace), a 2-trace grid of 4 lanes with a mid-run free
    and three CostConfigs; a machine of 33 to 64 ways, blocked against
    per-step; then the sequential fault path against the batched one on a
-   small case (footprint 2^9, 32 run steps);
+   small case (footprint 2^8, 16 run steps);
 [service] the simulation service (``repro_torch.service``) on the card,
    with ``repro_torch.obs.Telemetry`` on: (a) at [10]'s size (the
    quickstart's ``kv_store`` trace cut to [10]'s footprint and run steps,
@@ -134,7 +134,21 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    ``fail_lane`` poisons one lane and bisection isolates it
    (``PoisonedQueryError``), the other five bitwise against [10]'s solo
    runs;
-[steady] the steady-state trace of benchmarks/steady_state.py under Linux
+[multitenant] the multi-tenant twin (``repro_torch.multitenant_sim``, the
+   paper's section 6.3 scenario: fill apps exit mid-run, AutoNUMA
+   promotes, Radiant's Mig brings PTE pages home) on the card at its smoke
+   size: ``benchmark_machine()`` at full width, the fill apps as at the
+   full size (3,857 populate steps), the benchmark app cut to 2^12 pages
+   and 256 run steps; Linux and BHi+Mig, each in a worker process of its
+   own (``--multitenant-worker``, side by side), held to the port's numpy
+   oracle (``repro_torch.core.ref.OracleSim``, run on the CPU meanwhile in
+   a third worker, ``--oracle-worker``: summary counters and placement
+   arrays exact, cycles to rtol 1e-5) and to the golden file's smoke entry
+   (``src/repro_torch/core/golden/multitenant.json``); ``alloc_scan``
+   launches == steps with a fault; BHi+Mig ends with more PTE pages on
+   DRAM than Linux, having migrated some;
+[steady] the steady-state trace of benchmarks/steady_state.py (at half its
+   run steps, 1,024) under Linux
    first-touch and BHi+Mig at ``autonuma_period`` 512: the blocked and
    the per-step engine's wall clock and steps/s, the two held equal as in
    [10], and over the run phase of
@@ -149,7 +163,8 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    ``configs.reduced()``, f32 and bf16, on the card against the CPU route
    on the same seeded params: ``lm_loss``, prefill logits and one decode
    step (hubert: forward and loss), and rwkv in f32 once more with its
-   time-mix steps kept in f32, held to the f32 tolerance of the rest;
+   time-mix steps kept in f32, held to the f32 tolerance of the rest,
+   and ``moe_apply`` over two sequence chunks (S = 2 x ``seq_chunk``);
    (b) Qwen1.5-0.5B at full width (24 layers, d_model 1024, 16/16 heads,
    d_ff 2816, vocab 151,936, tied, QKV bias, bf16, seeded params):
    prefill of 8 x 512 tokens, 64 greedy decode steps with the tokens on
@@ -204,14 +219,17 @@ Phases (any failure exits non-zero; no phase is caught and passed over):
    against the same step on a one-rank gloo mesh on the CPU ([train]
    (a)'s tolerances), and the int8 compressed step card against CPU
    (within two int8 quanta of the shared scale); (b) Qwen1.5-0.5B at full
-   width, bf16, remat "full", two microbatches of 4 x 512 tokens, 5 steps
+   width, bf16, remat "full", two microbatches of 4 x 512 tokens, 3 steps
    each under ``DEFAULT_RULES``, ``FSDP_RULES`` and ``seq_shard``, the
    params DTensors and the backend NCCL, each bitwise equal to the
    one-device step, ms a step beside the one-device step's, every kernel
    launch count 0; the int8 compressed step at DP 1 at full width against
    one plain step (the loss equal, the moments within two int8 quanta of
    the leaf's largest plus 2^-7 for the plain step's bf16 rounding of its
-   clipped grads, the params within 2 lr + 1e-4);
+   clipped grads, the params within 2 lr + 1e-4); four decode steps of B 8
+   on the mesh, the cache laid out by ``kv_cache_sharding``
+   (``models.model.on_cache_shards``), logits and state bitwise equal to
+   the one-device steps;
    (c) the params saved from the mesh, files byte-equal to a one-device
    save, restored with ``FSDP_RULES`` placements bitwise; (d)
    ``launch.train --data 2 --model 1`` raising with the card count, and
@@ -311,10 +329,23 @@ ORACLE_POLICIES = [
     dict(data_policy=1, pt_policy=10, mig=False, autonuma=True,
          autonuma_period=16, autonuma_budget=32, autonuma_exchange=False),
 ]
-# phase [10]'s trace: 192 populate and 384 run steps, one scan tick (at
-# step 512, the default autonuma_period, so a hoist window); its footprint
-# is cut so that the script, [dist] included, stays within its time limit
-REDUCED = dict(footprint=1 << 12, run_steps=384)
+# the summary keys tests/test_ntier.py holds to the oracle: exact, and the
+# cycle sums to rtol 1e-5
+ORACLE_EXACT = ("l1_hits", "stlb_hits", "walks", "walk_mem_reads", "faults",
+                "slow_allocs", "data_migrations", "demotions",
+                "l4_mig_success", "l4_mig_already_dest", "l4_mig_in_dram",
+                "l4_mig_sibling_guard", "l4_mig_lock_skip",
+                "data_pages_dram", "data_pages_nvmm", "leaf_pages_dram",
+                "leaf_pages_nvmm", "oom_killed", "oom_step",
+                "data_pages_per_tier", "leaf_pages_per_tier", "shadow_pages",
+                "nomad_retries", "nomad_flip_demotions", "nomad_shadow_drops")
+ORACLE_CYCLES = ("total_cycles", "walk_cycles", "stall_cycles",
+                 "data_mem_cycles", "fault_cycles", "migration_cycles")
+# phase [10]'s trace: 96 populate and 448 run steps, one scan tick (at
+# step 512, the default autonuma_period, so a hoist window) and a split
+# window; its footprint is cut so that the script, [dist] and
+# [multitenant] included, stays within its time limit
+REDUCED = dict(footprint=1 << 11, run_steps=448)
 
 
 def sim_cases():
@@ -814,9 +845,9 @@ def launch_count_phase(replays):
     measured last, so that the profiler's hooks can slow no timed run: for
     each quickstart policy, a fresh run of its machine at [10]'s size (the
     same step kinds: a populate step, a fault on most threads; a
-    run-phase step, no fault) under the default (blocked) engine, one
-    populate window (64 steps, replayed step by step) and four run-phase
-    windows (fast windows).  ``replays`` is (replayed, chunks)
+    run-phase step, no fault) under the default (blocked) engine, its
+    first populate window (64 steps, replayed step by step) and four
+    run-phase windows (fast windows).  ``replays`` is (replayed, chunks)
     of each policy's timed run."""
     from repro_torch import quickstart as tq
     from repro_torch.core import TieredMemSimulator, benchmark_machine, workloads
@@ -826,8 +857,7 @@ def launch_count_phase(replays):
     for name, pc in tq.POLICIES:
         runner = TieredMemSimulator(mc=mc, pc=pc).runner(trace)
         block = runner.block
-        runner.advance(2)
-        pop = profiled_window(runner, 1)
+        pop = profiled_window(runner, 1)          # the first populate window
         runner.advance(-(-p // block) - runner.w)
         run = profiled_window(runner, 4)
         check(pop["alloc_scan"][0] == pop["steps"] == block,
@@ -1143,6 +1173,140 @@ def service_phase(solo10):
     return launches
 
 
+def oracle_worker(out: str) -> int:
+    """[multitenant]'s worker (``chip_smoke.py --oracle-worker OUT``): the
+    port's numpy oracle (``repro_torch.core.ref.OracleSim``) on the CPU
+    for both policies of the multi-tenant twin at its smoke size; pickles
+    each policy's summary and placement arrays into the file OUT."""
+    import pickle
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import multitenant_sim as tm
+    from repro_torch.core import CostConfig, benchmark_machine
+    from repro_torch.core.ref import PLACEMENTS, OracleSim
+    mc = benchmark_machine()
+    trace = tm.multitenant_trace(mc, "smoke")
+    got = {}
+    for name, pc in tm.POLICIES:
+        t0 = time.perf_counter()
+        oracle = OracleSim(mc, CostConfig(), pc)
+        oracle.run(trace)
+        got[name] = (oracle.summary(),
+                     {k: getattr(oracle, a) for k, a in PLACEMENTS},
+                     time.perf_counter() - t0)
+    with open(out, "wb") as f:
+        pickle.dump(got, f)
+    return 0
+
+
+def multitenant_worker(name: str, out: str) -> int:
+    """[multitenant]'s card worker (``chip_smoke.py --multitenant-worker
+    POLICY OUT``): ``multitenant_sim.run`` of the one policy at the smoke
+    size on the card; pickles its (name, result, seconds, launches) into
+    the file OUT."""
+    import pickle
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch import multitenant_sim as tm
+    _, runs = tm.run("smoke", names=[name])
+    with open(out, "wb") as f:
+        pickle.dump(runs[0], f)
+    return 0
+
+
+def multitenant_phase():
+    """[multitenant] the twin of examples/multitenant_sim.py
+    (``repro_torch.multitenant_sim.run``) on the card at its smoke size:
+    ``benchmark_machine()`` at full width (32 threads), the fill apps as
+    at the full size and the benchmark app cut to 2^12 pages and 256 run
+    steps, one run per policy, each in a worker process of its own
+    (``--multitenant-worker``; the two loops are host-bound and leave the
+    card idle most of the time, so they run side by side); each held to
+    the port's numpy oracle (``core/ref.py``, run on the CPU in a third
+    worker meanwhile: summary counters and placement arrays exact, cycles
+    to rtol 1e-5) and to the golden file's smoke entry (the JAX package's
+    run); launches == steps with a fault; Radiant brings PTE pages home.
+    Every worker is waited for, and killed first if the phase fails.
+    Returns the launches of each kernel."""
+    import os
+    import pickle
+    import tempfile
+
+    import numpy as np
+    from repro_torch import multitenant_sim as tm
+    from repro_torch.core import (benchmark_machine, fault_step_mask,
+                                  trace_digest)
+    from repro_torch.core.ref import PLACEMENTS
+
+    t0 = time.perf_counter()
+    mc = benchmark_machine()
+    trace = tm.multitenant_trace(mc, "smoke")
+    fault_steps = int(fault_step_mask(trace, mc).sum())
+    golden = tm.load_golden()["sizes"]["smoke"]
+    check(golden["trace"]["digest"] == trace_digest(trace),
+          "[multitenant] the trace's digest differs from the golden file's")
+    launches = {"alloc_scan": 0, "fast_window": 0}
+    me = str(Path(__file__).resolve())
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [str(Path(tmp) / f"{i}.pkl") for i in range(3)]
+        workers = [subprocess.Popen(
+            [sys.executable, me, "--oracle-worker", outs[0]],
+            env=dict(os.environ, CUDA_VISIBLE_DEVICES=""))]
+        workers += [subprocess.Popen(
+            [sys.executable, me, "--multitenant-worker", name, out])
+            for (name, _), out in zip(tm.POLICIES, outs[1:])]
+        try:
+            for w in workers:
+                check(w.wait(timeout=900) == 0,
+                      f"[multitenant] a worker ({' '.join(w.args[2:4])}) "
+                      f"exited {w.returncode}")
+        finally:
+            for w in workers:
+                if w.poll() is None:
+                    w.kill()
+                w.wait()
+        loaded = []
+        for out in outs:
+            with open(out, "rb") as f:
+                loaded.append(pickle.load(f))
+    oracle, runs = loaded[0], loaded[1:]
+    bad = tm.golden_mismatches(trace, runs, "smoke")
+    check(not bad, f"[multitenant] differs from the golden file: {bad[:8]}")
+    for name, res, seconds, counts in runs:
+        want, arrays, oracle_s = oracle[name]
+        s = res.summary()
+        off = [k for k in ORACLE_EXACT if s[k] != want[k]]
+        off += [k for k in ORACLE_CYCLES
+                if not np.isclose(s[k], want[k], rtol=1e-5, atol=0.0)]
+        off += [k for k, _ in PLACEMENTS
+                if not np.array_equal(getattr(res.final_state, k), arrays[k])]
+        check(not off, f"[multitenant] {name}: card != the port's oracle "
+                       f"on {off}")
+        check(counts["alloc_scan"] == fault_steps,
+              f"[multitenant] {name}: alloc_scan launches "
+              f"{counts['alloc_scan']} != {fault_steps} steps with a fault")
+        check(counts["fast_window"] > 0,
+              f"[multitenant] {name}: no fast_window launch")
+        for k in launches:
+            launches[k] += counts[k]
+        log(f"[multitenant] {tm.report_line(name, res, trace)}")
+        log(f"[multitenant] {name}: {trace.n_steps} steps "
+            f"({trace.populate_steps} populate, {fault_steps} with a fault) "
+            f"x {mc.n_threads} threads in {seconds:.2f} s "
+            f"({trace.n_steps / seconds:.1f} steps/s, beside the other "
+            f"policy's worker); launches {counts}; == the port's "
+            f"oracle ({len(ORACLE_EXACT)} summary counters and "
+            f"{len(PLACEMENTS)} placement arrays exact, "
+            f"{len(ORACLE_CYCLES)} cycle keys to rtol 1e-5; the oracle "
+            f"{oracle_s:.1f} s on the CPU) == the golden file's smoke entry")
+    summaries = {name: res.summary() for name, res, _, _ in runs}
+    check(tm.pte_pages_come_home(summaries),
+          "[multitenant] Radiant's PTE pages did not come home")
+    log(f"[multitenant] PTE pages on DRAM: " + ", ".join(
+        f"{n} {v['leaf_pages_dram']} ({v['l4_mig_success']} migrated)"
+        for n, v in summaries.items())
+        + f"; {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def cpu_route_worker(case: int, out: str) -> int:
     """Phase [10]'s worker (``chip_smoke.py --cpu-route-worker CASE OUT``):
     pickles ``cpu_route_run(CASE, REDUCED)`` into the file OUT."""
@@ -1231,7 +1395,7 @@ def cpu_route_phase(width=8):
     case, and are read once the card is done with all of them.  Every
     worker is waited for, and killed first if the phase fails, so none
     outlives it.  Then one small case (``benchmark_machine()``,
-    footprint 2^9, 32 run steps) adds the sequential fault path against
+    footprint 2^8, 16 run steps) adds the sequential fault path against
     the batched one on the card.  Returns how the f32 timeline keys held
     between the engines."""
     import os
@@ -1318,7 +1482,7 @@ def cpu_route_phase(width=8):
                 p.wait()
     held += sweep_cases(cases, solo)
     mc = benchmark_machine()
-    trace = workloads.kv_store(mc, 1 << 9, run_steps=32)
+    trace = workloads.kv_store(mc, 1 << 8, run_steps=16)
     pc = bhi_mig()
     batched, _, batched_s = timed_run(TieredMemSimulator(mc=mc, pc=pc), trace)
     seq, _, seq_s = timed_run(TieredMemSimulator(
@@ -1326,7 +1490,7 @@ def cpu_route_phase(width=8):
     how = engines_agree(batched, seq, "[10] sequential vs batched")
     check(seq.summary()["faults"] > 0, "[10] the small case has no fault")
     log(f"[10] sequential fault path == batched on the card "
-        f"(benchmark_machine(), footprint 2^9, 32 run steps, "
+        f"(benchmark_machine(), footprint 2^8, 16 run steps, "
         f"{pc.label()}, {trace.n_steps} steps, {seq.summary()['faults']} "
         f"faults): state bitwise, timeline f32 keys {how}; sequential "
         f"{seq_s:.2f} s, batched {batched_s:.2f} s")
@@ -1570,8 +1734,9 @@ def sweep_cases(cases, solo):
 
 
 def steady_state_phase():
-    """The steady-state trace of benchmarks/steady_state.py
-    (``kv_store(benchmark_machine(), 1 << 12, run_steps=2048, seed=10)``)
+    """The steady-state trace of benchmarks/steady_state.py at half its run
+    steps (``kv_store(benchmark_machine(), 1 << 12, run_steps=1024,
+    seed=10)``; the script's time limit)
     under Linux first-touch and BHi+Mig at ``autonuma_period`` 512: the
     blocked and the per-step engine's wall clock (each loop under the sync
     check), the two runs held equal as in [10]; then, over the run phase
@@ -1586,7 +1751,7 @@ def steady_state_phase():
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import pt_walk as pt_walk_mod
     mc = benchmark_machine()
-    trace = workloads.kv_store(mc, 1 << 12, run_steps=2048, seed=10,
+    trace = workloads.kv_store(mc, 1 << 12, run_steps=1024, seed=10,
                                name="steady")
     S = trace.n_steps
     for name, pc in (("linux_default", linux_default()),
@@ -1760,6 +1925,29 @@ def model_phase(dev):
     log(f"[model] (a) rwkv6-3b f32 with the time-mix steps kept in f32 (not "
         f"rounded to bf16): max abs err {f32_steps:.3g} (tol "
         f"{MODEL_TOL['float32']:g})")
+    # the MoE layer's sequence chunks (S = 2 x seq_chunk), as the F8
+    # repair left them: card against CPU
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.modules import init_params
+    moe_errs = []
+    for mlp, shared, top_k in (("swiglu", True, 1), ("squared_relu", False, 2)):
+        for dtype in ("float32", "bfloat16"):
+            specs = moe_mod.moe_param_specs(64, 32, 4, mlp, shared, dtype)
+            w = init_params(specs, torch.Generator().manual_seed(2), "cpu")
+            x = (torch.randn((2, 16, 64), generator=torch.Generator()
+                             .manual_seed(3)) * 0.5).to(getattr(torch, dtype))
+            kw = dict(top_k=top_k, capacity_factor=1.0, mlp=mlp, seq_chunk=8)
+            got = moe_mod.moe_apply(on(w, dev), x.to(dev), **kw)
+            want = moe_mod.moe_apply(w, x, **kw)
+            moe_errs += [held(got[0], want[0], MODEL_TOL[dtype],
+                              f"[model] (a) moe_apply {mlp} {dtype} in two "
+                              f"sequence chunks",
+                              BF16_MEAN if dtype == "bfloat16" else None),
+                         held(got[1], want[1], MODEL_TOL["float32"],
+                              f"[model] (a) moe_apply {mlp} {dtype} aux")]
+    log(f"[model] (a) moe_apply in two sequence chunks (S 16, seq_chunk 8; "
+        f"swiglu with a shared expert and top-1, squared_relu and top-2; f32 "
+        f"and bf16): card vs CPU max abs err {max(moe_errs):.3g}")
     log(f"[model] (a) {time.perf_counter() - t0:.1f} s")
 
     # (b) Qwen1.5-0.5B at full width, bf16
@@ -2600,7 +2788,8 @@ def train_worker() -> int:
 
 # -- [dist] the mesh half of the training path ---------------------------------
 DIST_TC = dict(microbatches=2, seq_shard=True)    # [dist] (a)'s TrainConfig
-DIST_STEPS = 5                                    # [dist] (b)'s steps a run
+DIST_STEPS = 3                                    # [dist] (b)'s steps a run
+DIST_DECODE = 4                                   # [dist] (b)'s decode steps
 
 
 def free_port() -> int:
@@ -2942,6 +3131,40 @@ def dist_phase(dev, cpu, cpu_out, tmp, ones):
         f"int8 quanta and the plain step's bf16 rounding: "
         f"{COMPRESSED_QUANTA / 127 + BF16_CLIP_ROUNDING:.4g}); launches of "
         f"the port's kernels {counts}; {time.perf_counter() - t1:.1f} s")
+    # one Qwen1.5-0.5B decode step after another on the mesh, the cache
+    # laid out by kv_cache_sharding (model.on_cache_shards), against the
+    # one-device steps: bitwise on the (1, 1) mesh
+    from torch.distributed.tensor.experimental import implicit_replication
+    t1 = time.perf_counter()
+    serve = sh.distribute(tree_map(lambda a: a.detach().clone(), base),
+                          sh.param_shardings(specs, mesh))
+    one_st = models.init_decode_state(cfg, B, 64, device=dev)
+    mesh_st = sh.distribute(models.init_decode_state(cfg, B, 64, device=dev),
+                            sh.kv_cache_sharding(mesh, one_st))
+    toks = torch.randint(0, cfg.vocab, (DIST_DECODE, B), device=dev,
+                         dtype=torch.int32, generator=torch.Generator(
+                             device=dev).manual_seed(5))
+    ops.reset_launches()
+    with torch.no_grad(), implicit_replication():
+        for t in range(DIST_DECODE):
+            one_st, want_l = models.decode_step(cfg, base, one_st, toks[t], t)
+            mesh_st, got_l = models.decode_step(cfg, serve, mesh_st, toks[t],
+                                                t)
+            check(isinstance(got_l, DTensor)
+                  and torch.equal(plain(got_l), want_l),
+                  f"[dist] (b) decode step {t} on the mesh: logits not "
+                  f"bitwise equal to one device's")
+    check(all(isinstance(x, DTensor) for x in tree_leaves(mesh_st))
+          and all(torch.equal(a, b) for a, b in zip(
+              tree_leaves(plain(mesh_st)), tree_leaves(one_st))),
+          "[dist] (b) the mesh's decode state differs from one device's")
+    check(not any(ops.launch_counts().values()),
+          "[dist] (b) the mesh's decode launched one of the port's kernels")
+    log(f"[dist] (b) Qwen1.5-0.5B full width, {DIST_DECODE} decode steps of "
+        f"B {B} on the mesh (params under DEFAULT_RULES, the cache laid out "
+        f"by kv_cache_sharding, model.on_cache_shards): logits and state "
+        f"bitwise equal to one device's; {time.perf_counter() - t1:.1f} s")
+    del serve, one_st, mesh_st
     # -- (c) checkpoints
     import os
     t1 = time.perf_counter()
@@ -3584,9 +3807,11 @@ def main() -> int:
         f"of {len(held)} cases bitwise, the rest to rtol 1e-6")
     served = service_phase(solo10)
     log(f"[service] total wall {time.perf_counter() - t_start:.1f} s")
-    # the simulator's main paths: [9]'s solo run and
-    # [service] (a)'s broker flush
-    launches.update({k: sim_launches[k] + served[k]
+    tenants = multitenant_phase()
+    log(f"[multitenant] total wall {time.perf_counter() - t_start:.1f} s")
+    # the simulator's main paths: [9]'s solo run, [service] (a)'s broker
+    # flush and [multitenant]'s two runs
+    launches.update({k: sim_launches[k] + served[k] + tenants[k]
                      for k in sim_launches})
     steady_state_phase()
     log(f"[steady] total wall {time.perf_counter() - t_start:.1f} s")
@@ -3643,6 +3868,10 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--cpu-route-worker"]:
         sys.exit(cpu_route_worker(int(sys.argv[2]), sys.argv[3]))
+    if sys.argv[1:2] == ["--oracle-worker"]:
+        sys.exit(oracle_worker(sys.argv[2]))
+    if sys.argv[1:2] == ["--multitenant-worker"]:
+        sys.exit(multitenant_worker(sys.argv[2], sys.argv[3]))
     if sys.argv[1:2] == ["--model-worker"]:
         sys.exit(model_worker())
     if sys.argv[1:2] == ["--dist-cpu-worker"]:

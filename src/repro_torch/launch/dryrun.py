@@ -119,6 +119,75 @@ def _tensors(out):
     return [out] if isinstance(out, torch.Tensor) else []
 
 
+_FRESH_OUT = {}      # aten op -> whether it returns fresh, unaliased tensors
+
+
+def _memo_key(func, args, kwargs):
+    """A hashable key of an ``aten`` op that returns fresh tensors and of
+    its arguments' layouts (``meta`` tensors only), or None."""
+    fresh = _FRESH_OUT.get(func)
+    if fresh is None:
+        schema = func._schema
+        fresh = _FRESH_OUT[func] = (
+            func.namespace == "aten" and not schema.is_mutable
+            and all(r.alias_info is None for r in schema.returns))
+    if not fresh:
+        return None
+    parts = [func]
+    for a in list(args) + [v for kv in sorted(kwargs.items()) for v in kv]:
+        if isinstance(a, (list, tuple)):
+            items = a
+        else:
+            items = (a,)
+        for x in items:
+            if isinstance(x, torch.Tensor):
+                if x.device.type != "meta" or type(x) is not torch.Tensor:
+                    return None
+                parts.append((tuple(x.shape), x.stride(), x.dtype,
+                              x.storage_offset()))
+            elif x is None or isinstance(x, (bool, int, float, str,
+                                             torch.dtype, torch.device,
+                                             torch.memory_format,
+                                             torch.layout)):
+                parts.append((type(x), x))
+            else:
+                return None
+        parts.append(len(items) if isinstance(a, (list, tuple)) else -1)
+    return tuple(parts)
+
+
+def _layouts(func, out, args, kwargs):
+    """(shape, stride, dtype) of each tensor ``out`` holds, each in a
+    storage of its own that it fills from offset 0; None otherwise.  An
+    op found to return an input's storage (``aten._unsafe_view``, whose
+    schema does not say it aliases) is never memoized again."""
+    many = isinstance(out, (list, tuple))
+    outs = list(out) if many else [out]
+    if not all(type(t) is torch.Tensor and t.device.type == "meta"
+               and t.storage_offset() == 0 for t in outs):
+        return None
+    inputs = {t.untyped_storage()._cdata
+              for t in _tensors(list(args) + list(kwargs.values()))}
+    if any(t.untyped_storage()._cdata in inputs for t in outs):
+        _FRESH_OUT[func] = False
+        return None
+    shapes = [(tuple(t.shape), t.stride(), t.dtype) for t in outs]
+    probe = [torch.empty_strided(*l[:2], dtype=l[2], device="meta")
+             for l in shapes]
+    if [p.untyped_storage().nbytes() for p in probe] != \
+            [t.untyped_storage().nbytes() for t in outs] or \
+            len({t.untyped_storage()._cdata for t in outs}) != len(outs):
+        return None
+    return (type(out) if many else None, shapes)
+
+
+def _fresh(layout):
+    kind, shapes = layout
+    outs = [torch.empty_strided(shape, stride, dtype=dtype, device="meta")
+            for shape, stride, dtype in shapes]
+    return kind(outs) if kind is not None else outs[0]
+
+
 class StepRecorder(TorchDispatchMode):
     """What one rank's step does, counted on its local tensors while the
     mode is active: every functional collective as ``(op, result_bytes,
@@ -127,14 +196,24 @@ class StepRecorder(TorchDispatchMode):
     formulas) in :attr:`flops`, and the bytes of local storage alive
     (:attr:`live`, each untyped storage once, freed when its last tensor
     goes) and their most (:attr:`peak`).  DTensor ops are let through to
-    DTensor, so what is counted is each rank's own work and traffic."""
+    DTensor, so what is counted is each rank's own work and traffic.
 
-    def __init__(self, tensors=()):
+    ``memo``: an op of the ``aten`` namespace that neither mutates nor
+    aliases its inputs, called on ``meta`` tensors of the same shapes,
+    strides and dtypes and the same other arguments as before, gets a
+    fresh ``meta`` tensor laid out as its first result was, without its
+    meta kernel running again (most of them are PyTorch's Python
+    reference implementations, 0.2-0.5 ms an op; a 4,096-step loop runs
+    ~1e5 of them).  What is counted does not change (the tests hold the
+    two equal)."""
+
+    def __init__(self, tensors=(), memo: bool = True):
         super().__init__()
         self.records = []
         self.flops = 0
         self.live = self.peak = 0
         self._refs = {}
+        self._memo = {} if memo else None
         for t in tensors:
             self._track(t)
 
@@ -152,12 +231,51 @@ class StepRecorder(TorchDispatchMode):
         self.live += n
         self.peak = max(self.peak, self.live)
 
+    def __enter__(self):
+        # DTensor's sharding propagation, on a miss of its cache, runs the
+        # op (or its decomposition) on fake or meta tensors of the global
+        # shapes: no rank's work or storage, so nothing of it is counted
+        prop = DTensor._op_dispatcher.sharding_propagator
+        self._propagating = 0
+        self._unpatch = []
+        for name in ("propagate", "propagate_op_sharding",
+                     "propagate_op_sharding_non_cached"):
+            orig = getattr(prop, name)
+
+            def counted(*a, _orig=orig, **k):
+                self._propagating += 1
+                try:
+                    return _orig(*a, **k)
+                finally:
+                    self._propagating -= 1
+            self._unpatch.append((name, name in vars(prop), orig))
+            setattr(prop, name, counted)
+        return super().__enter__()
+
+    def __exit__(self, *exc):
+        prop = DTensor._op_dispatcher.sharding_propagator
+        for name, own, orig in reversed(self._unpatch):
+            if own:
+                setattr(prop, name, orig)
+            else:
+                delattr(prop, name)
+        return super().__exit__(*exc)
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.utils.flop_counter import flop_registry
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         kwargs = kwargs or {}
-        out = func(*args, **kwargs)
+        if self._propagating:
+            return func(*args, **kwargs)
+        key = None if self._memo is None else _memo_key(func, args, kwargs)
+        layout = None if key is None else self._memo.get(key)
+        if layout is None:
+            out = func(*args, **kwargs)
+            if key is not None:
+                self._memo[key] = _layouts(func, out, args, kwargs)
+        else:
+            out = _fresh(layout)
         packet = func._overloadpacket
         if func.namespace == "_c10d_functional" \
                 and packet.__name__ in XLA_OP:
@@ -253,9 +371,10 @@ def _laid_out(out, shardings):
                 if isinstance(t, DTensor) else t, out, shardings)
 
 
-def build_cell(cfg, shape, mesh, variant=None):
+def build_cell(cfg, shape, mesh, variant=None, microbatch_hook=None):
     """Returns (fn, example_args, meta): ``fn(*example_args)`` runs one
-    rank's step of the cell on abstract DTensors."""
+    rank's step of the cell on abstract DTensors (a train step calls
+    ``microbatch_hook``, ``make_train_step``'s, if given)."""
     specs = model_mod.param_specs(cfg)
     pbytes = sum(math.prod(s.shape) * torch_dtype(s.dtype).itemsize
                  for s in tree_leaves(specs))
@@ -278,7 +397,8 @@ def build_cell(cfg, shape, mesh, variant=None):
         ov.update({k: v for k, v in overrides.items() if k != "rules"})
         factored = ov.pop("factored", False)
         tc = TrainConfig(opt=opt_mod.OptConfig(factored=factored), **ov)
-        step = make_train_step(cfg, tc, mesh)
+        step = make_train_step(cfg, tc, mesh,
+                               microbatch_hook=microbatch_hook)
         o_sh = shard_mod.opt_state_shardings(specs, mesh, rules, factored)
         abs_opt = tree_map(abstract, opt_mod.abstract_opt_state(
             model_mod.make_abstract_params(cfg), factored), o_sh)
@@ -323,13 +443,56 @@ def _local_bytes(tree) -> int:
                for t in _leaves(tree) if isinstance(t, torch.Tensor))
 
 
+def _step_record(cfg, shape, mesh, variant, op_by_op: bool):
+    """Run one rank's step under a :class:`StepRecorder`; returns (meta,
+    args, recorder, records, flops, microbatches run).
+
+    A train step of two or more microbatches runs the first and counts
+    the rest: every microbatch runs the same ops from the same live
+    storage (the sums it adds into; ``make_train_step`` frees each
+    microbatch's own grads once added), so each adds the first one's
+    collectives and FLOPs and reaches its peak again, and the optimizer
+    starts from the same storage.  The run checks that the second
+    microbatch would start from the live bytes the first started from,
+    and runs every microbatch where it would not (or where ``op_by_op``
+    asks)."""
+    n = TRAIN_OVERRIDES.get(cfg.name, {}).get("microbatches", 1)
+    n = PERF_VARIANTS.get(variant, {}).get((cfg.name, shape.name), {}).get(
+        "microbatches", n)
+    marks = []
+    recorder = None
+
+    def hook(i):
+        marks.append((len(recorder.records), recorder.flops, recorder.live))
+        return i < 1
+
+    short = shape.kind == "train" and n >= 2 and not op_by_op
+    fn, args, meta = build_cell(cfg, shape, mesh, variant,
+                                hook if short else None)
+    recorder = StepRecorder([t.to_local() for t in _leaves(args)
+                             if isinstance(t, DTensor)])
+    with recorder:
+        fn(*args)
+    records, flops = recorder.records, recorder.flops
+    if not short:
+        return meta, args, recorder, records, flops, n
+    (r0, f0, live0), (r1, f1, live1) = marks
+    if live0 != live1:
+        return _step_record(cfg, shape, mesh, variant, True)
+    return (meta, args, recorder,
+            records[:r1] + records[r0:r1] * (n - 1) + records[r1:],
+            flops + (n - 1) * (f1 - f0), 1)
+
+
 def run_cell(arch_id: str, shape_id: str, mesh_name: str,
              force: bool = False, variant=None, cfg=None, shape=None,
-             mesh_shape=None, out_dir=None) -> dict:
+             mesh_shape=None, out_dir=None, op_by_op: bool = False) -> dict:
     """Dry-run one cell and write its record.  ``cfg`` / ``shape`` /
     ``mesh_shape`` (``(data, model)`` or ``(pod, data, model)``) /
     ``out_dir`` override the registry's config, the named shape, the
-    production mesh and the artifact directory (for small runs)."""
+    production mesh and the artifact directory (for small runs);
+    ``op_by_op`` runs every microbatch of a train step (see
+    :func:`_step_record`)."""
     dir_name = mesh_name if not variant else f"{mesh_name}-{variant}"
     out_dir = Path(out_dir) if out_dir is not None else ART_DIR / dir_name
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -364,20 +527,16 @@ def run_cell(arch_id: str, shape_id: str, mesh_name: str,
                     else ("pod", "data", "model")
                 mesh = shard_mod.make_mesh(mesh_shape, names, "cpu")
             t0 = time.time()
-            fn, args, meta = build_cell(cfg, shape, mesh, variant)
+            meta, args, recorder, records, flops, ran = _step_record(
+                cfg, shape, mesh, variant, op_by_op)
             rec.update(meta)
-            rec["build_s"] = round(time.time() - t0, 1)
-            locals_ = [t.to_local() for t in _leaves(args)
-                       if isinstance(t, DTensor)]
-            recorder = StepRecorder(locals_)
-            t0 = time.time()
-            with recorder:
-                fn(*args)
+            if shape.kind == "train":
+                rec["microbatches_run"] = ran
             rec["run_s"] = round(time.time() - t0, 1)
             rec["memory"] = {"argument_bytes": _local_bytes(args),
                              "peak_bytes": recorder.peak}
-            rec["cost"] = {"flops": float(recorder.flops)}
-            rec["collectives"] = parse_collectives(recorder.records)
+            rec["cost"] = {"flops": float(flops)}
+            rec["collectives"] = parse_collectives(records)
             rec["status"] = "ok"
     except Exception as e:  # noqa: BLE001 — record the failure verbatim
         rec["status"] = "failed"

@@ -182,11 +182,16 @@ def chunked_attention(q, k, v, *, causal: bool, q_chunk: int = 512,
     return torch.stack(outs, dim=1).reshape(B, S, H, Dh)
 
 
-def decode_attention(q, k_cache, v_cache, length=None):
+def decode_attention(q, k_cache, v_cache, length=None, *, head_dim=None,
+                     score_sum=None):
     """One-token attention: q [B, H, Dh]; caches [B, S, KH, Dh].
 
     ``length``: optional [B] valid-length mask (entries >= length ignored).
     An f8 cache is dequantized to ``q.dtype`` first, as in the reference.
+    ``score_sum`` (the mesh path, ``model.on_cache_shards``): where q and
+    the caches hold one rank's slice of the head dim, it sums the raw
+    scores [B, KH, G, S] across the ranks before they are scaled by the
+    whole ``head_dim``'s ``1 / sqrt``.
     """
     B, H, Dh = q.shape
     S, KH = k_cache.shape[1], k_cache.shape[2]
@@ -195,8 +200,10 @@ def decode_attention(q, k_cache, v_cache, length=None):
         k_cache = k_cache.to(q.dtype)
         v_cache = v_cache.to(q.dtype)
     qr = q.reshape(B, KH, G, Dh)
-    s = torch.einsum("bkgd,bskd->bkgs", qr.to(F32), k_cache.to(F32)) \
-        * _softmax_scale(Dh)
+    s = torch.einsum("bkgd,bskd->bkgs", qr.to(F32), k_cache.to(F32))
+    if score_sum is not None:
+        s = score_sum(s)
+    s = s * _softmax_scale(head_dim or Dh)
     if length is not None:
         mask = torch.arange(S, device=q.device)[None, :] < length[:, None]
         s = torch.where(mask[:, None, None, :], s, NEG_INF)

@@ -10,13 +10,15 @@ Decode carries the (conv window, SSM state) pair: O(1) memory per token.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from .modules import ParamSpec, remat
+from .modules import ParamSpec, on_shards, remat
 
 F32 = torch.float32
 
@@ -70,6 +72,23 @@ def causal_conv(xs, conv_w, conv_b):
     return _conv_taps(pad, conv_w, conv_b, xs.shape[1])
 
 
+def _scan(dA, dBx, Cs, h, dtype):
+    """The recurrence over a chunk's steps: dA / dBx [B, chunk, di, ds],
+    Cs [B, chunk, ds], h [B, di, ds] (f32); returns (h, y [B, chunk, di]
+    in ``dtype``).  DTensors (the mesh path) run it on each rank's batch
+    and ``di`` shards."""
+    if isinstance(dA, DTensor):
+        return on_shards(functools.partial(_scan, dtype=dtype), dA,
+                         (dA, dBx, Cs, h),
+                         ({0: 0, 2: 2}, {0: 0, 2: 2}, {0: 0}, {0: 0, 2: 1}),
+                         ({0: 0, 2: 1}, {0: 0, 2: 2}))
+    ys = []
+    for t in range(dA.shape[1]):
+        h = dA[:, t] * h + dBx[:, t]
+        ys.append(torch.einsum("bis,bs->bi", h, Cs[:, t]).to(dtype))
+    return h, torch.stack(ys, dim=1)
+
+
 def _chunk_body(w, h, tail, x_c):
     """One chunk: x_c [B, chunk, D], carrying (h [B, di, ds] f32, tail
     [B, K-1, di]); returns (h, tail, out_c [B, chunk, D])."""
@@ -81,11 +100,8 @@ def _chunk_body(w, h, tail, x_c):
     conv32 = conv.to(F32)
     dA = torch.exp(dt[..., None] * A)                     # [B,chunk,di,ds]
     dBx = dt[..., None] * Bs[:, :, None, :] * conv32[..., None]
-    ys = []
-    for t in range(chunk):
-        h = dA[:, t] * h + dBx[:, t]
-        ys.append(torch.einsum("bis,bs->bi", h, Cs[:, t]).to(x_c.dtype))
-    y = torch.stack(ys, dim=1).to(F32)                    # [B,chunk,di]
+    h, y = _scan(dA, dBx, Cs, h, x_c.dtype)
+    y = y.to(F32)                                         # [B,chunk,di]
     y = (y + w["D"] * conv32) * F.silu(z.to(F32))
     return h, window[:, chunk:], y.to(x_c.dtype) @ w["out_proj"]
 

@@ -18,10 +18,12 @@ Decode state per period position (stacked over groups, as the reference's):
 """
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from ..configs.base import ArchConfig, torch_dtype
 from ..device import resolve_device
@@ -392,6 +394,52 @@ def _write_at(cache, pos, x):
     cache.index_copy_(1, pos, x)
 
 
+def on_cache_shards(q, k, v, k_state, v_state, g: int, pos):
+    """Group ``g``'s cache write and decode attention on each rank's shard
+    of the DTensor caches ``k_state`` / ``v_state`` [G, B, S, KH, Dh], laid
+    out as ``kv_cache_sharding`` lays them out (batch over DP, Dh over
+    "model"): q [B, H, Dh] and the new k, v [B, KH, Dh] are laid out as
+    the caches' shards, k and v written into the local shards, the
+    scores' partial sums over the local Dh summed across the ranks that
+    hold the rest of it (an all-reduce of [B, KH, G, S]), and the value
+    product taken on the local shards.  No DTensor op sees the cache
+    (DTensor's own einsums over it gather the query's heads and the
+    probabilities instead); on a mesh whose every dim replicates, the
+    local ops are the one-device path's."""
+    mesh = k_state.device_mesh
+    to_qkv = {1: 0, 4: 2}              # cache dim -> dim of q / k / v
+    if any(isinstance(p, Shard) and p.dim not in to_qkv
+           for p in k_state.placements):
+        raise ValueError(f"cache placements {k_state.placements}")
+    pl = [Shard(to_qkv[p.dim]) if isinstance(p, Shard) else Replicate()
+          for p in k_state.placements]
+    shape = tuple(q.shape)
+    q, k, v = (x.redistribute(mesh, pl).to_local() for x in (q, k, v))
+    k_cache, v_cache = k_state.to_local()[g], v_state.to_local()[g]
+    _write_at(k_cache, pos, k)
+    _write_at(v_cache, pos, v)
+    partial = [Partial() if isinstance(p, Shard) and p.dim == 2 else p
+               for p in pl]
+    whole = [Replicate() if isinstance(p, Partial) else p for p in partial]
+
+    def score_sum(s):
+        if partial == whole:
+            return s
+        glob = (shape[0],) + tuple(s.shape[1:])
+        st = DTensor.from_local(s, mesh, partial, shape=torch.Size(glob),
+                                stride=_strides(glob))
+        return st.redistribute(mesh, whole).to_local()
+    length = (pos + 1).expand(q.shape[0])
+    out = layers.decode_attention(q, k_cache, v_cache, length=length,
+                                  head_dim=shape[-1], score_sum=score_sum)
+    return DTensor.from_local(out, mesh, pl, shape=torch.Size(shape),
+                              stride=_strides(shape))
+
+
+def _strides(shape) -> tuple:
+    return tuple(math.prod(shape[i + 1:]) for i in range(len(shape)))
+
+
 def init_decode_state(cfg: ArchConfig, batch: int, max_seq: int,
                       abstract: bool = False,
                       kv_dtype: Optional[str] = None, device=None) -> Dict:
@@ -468,10 +516,14 @@ def decode_step(cfg: ArchConfig, params, state: Dict, tokens,
                     # (t, h, w) components reduces exactly to RoPE
                     q = layers.apply_rope(q[:, None], posv)[:, 0]
                     k = layers.apply_rope(k[:, None], posv)[:, 0]
-                k_cache, v_cache = full["k"][g], full["v"][g]
-                _write_at(k_cache, pos, k)
-                _write_at(v_cache, pos, v)
-                y = layers.decode_attention(q, k_cache, v_cache, length=length)
+                if isinstance(full["k"], DTensor):
+                    y = on_cache_shards(q, k, v, full["k"], full["v"], g, pos)
+                else:
+                    k_cache, v_cache = full["k"][g], full["v"][g]
+                    _write_at(k_cache, pos, k)
+                    _write_at(v_cache, pos, v)
+                    y = layers.decode_attention(q, k_cache, v_cache,
+                                                length=length)
                 y = merge_heads(y) @ p["attn"]["wo"]
             elif mixer == "mamba":
                 st = {"conv": full["conv"][g], "ssm": full["ssm"][g]}

@@ -19,6 +19,7 @@ from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from .modules import ParamSpec
 
@@ -113,6 +114,19 @@ def route(router, x, *, top_k: int, capacity_factor: float) -> Routing:
     return Routing(probs, gate_vals, sel, pos, keep, dispatch, combine, aux)
 
 
+def _dense(h):
+    """``h`` as it is, or, for a DTensor, with a contiguous layout.
+
+    Where DTensor runs the up-projections by gathering the batch (FSDP
+    weights that outweigh the activations, as at Maverick's full width),
+    each rank's shard of ``h`` is laid out batch-major while the DTensor's
+    global strides say expert-major.  The down-projection's ``einsum``
+    permutes to (e, b, c, f) and merges (b, c): a view by the global
+    strides, which the local shard cannot take.  A contiguous copy makes
+    the two layouts agree.  The one-device path keeps its ops."""
+    return h.contiguous() if isinstance(h, DTensor) else h
+
+
 def moe_apply(w, x, *, top_k: int, capacity_factor: float,
               mlp: str, seq_chunk: int = 4096) -> Tuple[torch.Tensor,
                                                         torch.Tensor]:
@@ -140,11 +154,11 @@ def moe_apply(w, x, *, top_k: int, capacity_factor: float,
         g = torch.einsum("becd,edf->becf", xe, w["w_gate"])
         u = torch.einsum("becd,edf->becf", xe, w["w_up"])
         h = F.silu(g.to(F32)).to(x.dtype) * u
-        ye = torch.einsum("becf,efd->becd", h, w["w_down"])
+        ye = torch.einsum("becf,efd->becd", _dense(h), w["w_down"])
     else:
         h = torch.einsum("becd,edf->becf", xe, w["w_in"])
         h = torch.relu(h.to(F32)).square().to(x.dtype)
-        ye = torch.einsum("becf,efd->becd", h, w["w_out"])
+        ye = torch.einsum("becf,efd->becd", _dense(h), w["w_out"])
     out = torch.einsum("bsec,becd->bsd", r.combine, ye)
 
     if "shared_w_gate" in w:

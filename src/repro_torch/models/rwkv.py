@@ -16,8 +16,9 @@ from typing import Dict
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
-from .modules import ParamSpec, merge_heads, remat, split_heads
+from .modules import ParamSpec, merge_heads, on_shards, remat, split_heads
 
 F32 = torch.float32
 HEAD = 64  # RWKV6 fixed head size
@@ -101,7 +102,13 @@ def _group_norm_out(w, y, g, dtype):
 
 def _chunk_body(u, st, rh, kh, vh, wh):
     """One chunk of steps: r/k/v/decay [B, chunk, H, 64] (f32), the state
-    st [B, H, 64, 64]; returns (st, ys [B, chunk, H, 64] in YS_DTYPE)."""
+    st [B, H, 64, 64]; returns (st, ys [B, chunk, H, 64] in YS_DTYPE).
+    DTensors (the mesh path) run it on each rank's batch and head
+    shards."""
+    if isinstance(rh, DTensor):
+        return on_shards(_chunk_body, rh, (u, st, rh, kh, vh, wh),
+                         ({2: 0}, {0: 0, 2: 1}) + ({0: 0, 2: 2},) * 4,
+                         ({0: 0, 2: 1}, {0: 0, 2: 2}))
     ys = []
     for t in range(rh.shape[1]):
         kv = kh[:, t, :, :, None] * vh[:, t, :, None, :]  # [B,H,64,64]

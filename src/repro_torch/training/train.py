@@ -124,7 +124,7 @@ def _value_and_grad(loss_fn, params, batch):
 
 
 def make_train_step(cfg: ArchConfig, tc: TrainConfig, mesh=None,
-                    device=None) -> Callable:
+                    device=None, microbatch_hook=None) -> Callable:
     """(params, opt_state, batch) -> (params, opt_state, metrics).
 
     Without a mesh, ``device`` (``None``: the CUDA device; raises without
@@ -134,9 +134,17 @@ def make_train_step(cfg: ArchConfig, tc: TrainConfig, mesh=None,
     is either DTensors or the global batch as plain tensors, the same on
     every rank (each keeps its rows).  The step sets ``requires_grad`` on
     the param leaves and updates them in place.
+
+    ``microbatch_hook`` (mesh only; the dry run's): called with ``i``
+    before microbatch ``i``; a false return ends the loop there, and the
+    loss and grads are still divided by ``tc.microbatches``.  Each
+    microbatch starts from the same live storage (the sums; its own grads
+    are freed once added).
     """
     if mesh is not None:
-        return _mesh_train_step(cfg, tc, mesh)
+        return _mesh_train_step(cfg, tc, mesh, microbatch_hook)
+    if microbatch_hook is not None:
+        raise ValueError("microbatch_hook needs a mesh")
     dev = resolve_device(device)
     adt = torch_dtype(tc.accum_dtype)
 
@@ -180,7 +188,8 @@ def _update(tc: TrainConfig, params, grads, opt_state, loss):
     return params, opt_state, metrics
 
 
-def _mesh_train_step(cfg: ArchConfig, tc: TrainConfig, mesh) -> Callable:
+def _mesh_train_step(cfg: ArchConfig, tc: TrainConfig, mesh,
+                     microbatch_hook=None) -> Callable:
     """``make_train_step`` on a mesh: the same step on DTensors, run under
     ``implicit_replication`` (the tensors made inside layers, positions
     and masks, count as replicated), each grad laid out as its param."""
@@ -213,10 +222,16 @@ def _mesh_train_step(cfg: ArchConfig, tc: TrainConfig, mesh) -> Callable:
                 grads = tree_map(lambda p: torch.zeros_like(p, dtype=adt),
                                  params)
                 for i in range(tc.microbatches):
+                    if microbatch_hook is not None \
+                            and not microbatch_hook(i):
+                        break
                     l, g = value_and_grad(params,
                                           {k: v[i] for k, v in mbs.items()})
                     loss = loss + l
                     grads = tree_map(lambda a, b: a + b.to(adt), grads, g)
+                    # every microbatch starts from the same storage: the
+                    # sums (and the dry run counts on it, _step_record)
+                    del l, g
                 inv = opt_mod.recip_f32(tc.microbatches)
                 loss = loss * inv
                 grads = tree_map(lambda g: g * inv, grads)

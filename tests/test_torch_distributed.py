@@ -193,8 +193,108 @@ MESH_STEP_CODE = f"""
         sharded = sum(any(pl.is_shard() for pl in x.placements)
                       for x in tree_leaves(p))
         got[name] = dict(rows=out, sharded=sharded)
+    from torch.distributed.tensor.experimental import implicit_replication
+    serve = sh.distribute(fresh(), sh.param_shardings(specs, mesh))
+    one_st = models.init_decode_state(cfg, 4, 32, device="cpu")
+    st = sh.distribute(models.init_decode_state(cfg, 4, 32, device="cpu"),
+                       sh.kv_cache_sharding(mesh, one_st))
+    toks = torch.randint(0, cfg.vocab, (6, 4),
+                         generator=torch.Generator().manual_seed(1))
+    lerr = cerr = 0.0
+    with torch.no_grad(), implicit_replication():
+        for t in range(6):
+            one_st, want = models.decode_step(cfg, base, one_st, toks[t], t)
+            st, lg = models.decode_step(cfg, serve, st, toks[t], t)
+            lerr = max(lerr, float((lg.full_tensor() - want).abs().max()
+                                   / want.abs().max()))
+    for k in ("k", "v"):
+        a, w = st["pos0"][k], one_st["pos0"][k]
+        cerr = max(cerr, float((a.full_tensor() - w).abs().max()
+                               / w.abs().max()))
+    got["decode"] = dict(lerr=lerr, cerr=cerr, placements=[
+        str(p) for p in st["pos0"]["k"].placements])
+    from repro_torch.models import rwkv
+    rwkv.YS_DTYPE = torch.float32   # the steps' bf16 rounding flips apart
+    loops = {{}}
+    for arch in ("rwkv6-3b", "jamba-v0.1-52b"):
+        c = dataclasses.replace(configs.reduced(configs.get_config(arch)),
+                                dtype="float32")
+        p1 = models.make_params(c, torch.Generator().manual_seed(2), "cpu")
+        pm = sh.distribute(tree_map(lambda a: a.clone(), p1),
+                           sh.param_shardings(models.param_specs(c), mesh))
+        b = batch_at(DataConfig(vocab=c.vocab, seq_len=64, global_batch=4),
+                     0, device="cpu")
+        bm = {{k: ttrain._shard_rows(v, mesh) for k, v in b.items()}}
+        for t in tree_leaves(p1) + tree_leaves(pm):
+            t.requires_grad_(True)
+        l1 = models.lm_loss(c, p1, b)
+        g1 = torch.autograd.grad(l1, tree_leaves(p1))
+
+        def on_mesh():
+            with implicit_replication():
+                lm = models.lm_loss(
+                    c, pm, bm, act_constraint=ttrain.batch_constraint(mesh))
+                return lm, torch.autograd.grad(lm, tree_leaves(pm))
+        lm, gm = on_mesh()
+        # the loops through DTensor's dispatch op by op, as before on_shards
+        from repro_torch.models import mamba
+        for mod in (rwkv, mamba):
+            mod.DTensor = type("NoDTensor", (), {{}})
+        try:
+            ld, gd = on_mesh()
+        finally:
+            rwkv.DTensor = mamba.DTensor = DTensor
+
+        def err(gs, ws):
+            return max(float((a.full_tensor() - w).abs().max()
+                             / max(float(w.abs().max()), 1e-30))
+                       for a, w in zip(gs, ws))
+        loops[arch] = dict(
+            loss=abs(float(lm.full_tensor()) - float(l1)) / abs(float(l1)),
+            grads=err(gm, g1),
+            dispatch=err(gm, [a.full_tensor() for a in gd]),
+            dispatch_loss=float(lm.full_tensor()) == float(ld.full_tensor()))
+    got["loops"] = loops
     print(json.dumps(got))
     """
+
+
+def test_decode_step_on_mesh_keeps_the_cache_sharded(tmp_path_factory):
+    """Six decode steps of reduced Qwen1.5-0.5B in f32 on the (2, 2) mesh
+    (params under ``DEFAULT_RULES``, the state as ``kv_cache_sharding``
+    lays it out: batch over "data", Dh over "model") against the
+    one-device steps: the logits and the caches within 1e-5 of their
+    largest (the scores' partial sums over each rank's Dh add in another
+    order), and the caches still laid out as they came.  Read from the
+    mesh step's spawn of the ranks."""
+    rows, _ = shared_ranks(tmp_path_factory, "mesh_step", lambda _: (
+        QWEN_F32, MESH_STEP_CODE))
+    rows = [r["decode"] for r in rows]
+    for r in rows:
+        assert r == rows[0]
+    assert rows[0]["placements"] == ["S(1)", "S(4)"]
+    assert rows[0]["lerr"] <= 1e-5 and rows[0]["cerr"] <= 1e-5, rows[0]
+
+
+def test_step_loops_on_local_shards_match_one_device(tmp_path_factory):
+    """RWKV's and Mamba's step loops run on each rank's shards on the mesh
+    (``modules.on_shards``): reduced rwkv6-3b and jamba-v0.1-52b in f32 on
+    the (2, 2) mesh.  ``lm_loss`` equal, and its grads within 1e-5 of
+    each grad's largest, to the same mesh step with the loops run through
+    DTensor's dispatch op by op (the partial grads of the replicated
+    inputs add in another order); against one device, the loss within
+    1e-5 and the grads within 1e-3 of each largest (rwkv reads 2.3e-4
+    either way: the mesh's sum order; its steps' outputs kept in f32 here,
+    since a bf16 rounding that flips moves a grad by 2^-8 of itself).
+    Read from the mesh step's spawn of the ranks."""
+    rows, _ = shared_ranks(tmp_path_factory, "mesh_step", lambda _: (
+        QWEN_F32, MESH_STEP_CODE))
+    rows = [r["loops"] for r in rows]
+    for r in rows:
+        assert r == rows[0]
+    for arch, r in rows[0].items():
+        assert r["dispatch_loss"] and r["dispatch"] <= 1e-5, (arch, r)
+        assert r["loss"] <= 1e-5 and r["grads"] <= 1e-3, (arch, r)
 
 
 # ---------------------------------------------------------------------------

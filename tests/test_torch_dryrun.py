@@ -3,6 +3,7 @@ the JAX package's: the collective parser on records equivalent to
 tests/test_launch.py's HLO, each cell's counts and skip reasons, and the
 dry run of reduced archs on a ``"fake"`` (2, 4) mesh with every
 argument's local bytes as the reference's ``spec_for`` shards them."""
+import dataclasses
 import math
 import os
 import subprocess
@@ -152,6 +153,108 @@ def test_dry_run_of_reduced_cells_on_a_fake_mesh(arch, tmp_path):
         assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"]
         assert rec["cost"]["flops"] >= rec["model_flops"] / 8 * 0.5, kind
         assert rec["collectives"], kind
+
+
+def test_moe_prefill_with_fsdp_experts_on_a_fake_mesh(monkeypatch, tmp_path):
+    """Llama-4 Maverick's ``prefill_32k`` layout at a reduced size: its
+    full cell shards d_model over "data" (``FSDP_RULES``) and its experts
+    over "model", and its expert weights outweigh the activations, so
+    DTensor gathers the batch for the up-projections.  Reduced Maverick
+    with 8 experts (2 a rank), a moe d_ff of 4096 and S = 8192 (two MoE
+    sequence chunks) ends ``ok``; the down-projection's ``einsum`` used
+    to fail on the local shard's layout ("view size is not compatible")."""
+    monkeypatch.setattr(dryrun.shard_mod, "choose_rules",
+                        lambda *a, **k: dryrun.shard_mod.FSDP_RULES)
+    cfg = configs.reduced(configs.get_config("llama4-maverick-400b-a17b"))
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, n_experts=8, d_ff=4096))
+    shape = ShapeConfig("prefill_s", 8192, 4, "prefill")
+    rec = dryrun.run_cell(cfg.name, shape.name, "fake2x4", force=True,
+                          cfg=cfg, shape=shape, mesh_shape=(2, 4),
+                          out_dir=tmp_path)
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["rules_fsdp"]
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "jamba-v0.1-52b"])
+def test_decode_keeps_the_cache_sharded_on_a_fake_mesh(arch):
+    """A decode step at S = 4096 on a fake (2, 4) mesh, with 4 KV heads so
+    that "model" shards the heads as 16 do on Qwen1.5-0.5B's (16, 16):
+    no all-gather reaches one layer's cache at its global size, and the
+    peak stays within 4 times the arguments.  It read 5.1 and 11.7 times
+    while the recorder counted the tensors of the global shapes that
+    DTensor's sharding propagation makes on a miss of its cache (for
+    the first ``select`` of the stacked cache: the whole cache)."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shard_mod
+    cfg = configs.reduced(configs.get_config(arch))
+    cfg = dataclasses.replace(cfg, n_heads=4, n_kv_heads=4)
+    shape = ShapeConfig("decode_s", 4096, 8, "decode")
+    with dryrun.fake_world(8):
+        mesh = shard_mod.make_mesh((2, 4), ("data", "model"), "cpu")
+        fn, args, _ = dryrun.build_cell(cfg, shape, mesh)
+        rec = dryrun.StepRecorder([t.to_local() for t in dryrun._leaves(args)
+                                   if isinstance(t, DTensor)])
+        with rec:
+            fn(*args)
+        arg_bytes = dryrun._local_bytes(args)
+    cache = shape.global_batch * shape.seq_len * cfg.n_kv_heads \
+        * cfg.head_dim * torch.empty((), dtype=configs.base.torch_dtype(
+            cfg.dtype)).element_size()
+    gathers = [b for op, b, _ in rec.records if op.startswith("all_gather")]
+    assert gathers and max(gathers) < cache
+    assert rec.peak <= 4 * arg_bytes, rec.peak / arg_bytes
+
+
+@pytest.mark.parametrize("arch", ["nemotron-4-340b", "jamba-v0.1-52b",
+                                  "rwkv6-3b"])
+def test_counted_microbatches_give_the_op_by_op_record(arch, monkeypatch,
+                                                       tmp_path):
+    """A train step of 4 microbatches under the arch's ``train_4k``
+    strategy (nemotron: ``seq_shard``, the factored optimizer, bf16
+    accumulation; jamba: ``seq_shard``, factored; rwkv: neither) that
+    runs one and counts three records what running all four does: the
+    same argument and peak bytes, FLOPs and collectives (counts, bytes
+    and traffic, the same floats)."""
+    cfg = configs.reduced(configs.get_config(arch))
+    monkeypatch.setitem(dryrun.TRAIN_OVERRIDES, cfg.name, dict(
+        dryrun.TRAIN_OVERRIDES[arch], microbatches=4))
+    shape = ShapeConfig("train_s", 32, 16, "train")
+    recs = [dryrun.run_cell(arch, shape.name, "fake2x4", force=True,
+                            cfg=cfg, shape=shape, mesh_shape=(2, 4),
+                            out_dir=tmp_path / str(op_by_op),
+                            op_by_op=op_by_op)
+            for op_by_op in (False, True)]
+    assert [r["status"] for r in recs] == ["ok", "ok"], \
+        [r.get("traceback") for r in recs]
+    assert [r["microbatches_run"] for r in recs] == [1, 4]
+    for key in ("memory", "cost", "collectives"):
+        assert recs[0][key] == recs[1][key], key
+
+
+def test_recorder_memo_records_what_the_meta_kernels_do():
+    """The recorder's memo of fresh ops' meta layouts changes nothing it
+    counts: a train, a prefill and a decode step of reduced rwkv6-3b (its
+    step loop is most of the memo's work) on the fake (2, 4) mesh record
+    the same collectives, FLOPs and peak with it as without it."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shard_mod
+    cfg = configs.reduced(configs.get_config("rwkv6-3b"))
+    with dryrun.fake_world(8):
+        mesh = shard_mod.make_mesh((2, 4), ("data", "model"), "cpu")
+        for kind in ("train", "prefill", "decode"):
+            got = []
+            for memo in (False, True):
+                fn, args, _ = dryrun.build_cell(
+                    cfg, ShapeConfig("s", 64, 8, kind), mesh)
+                rec = dryrun.StepRecorder(
+                    [t.to_local() for t in dryrun._leaves(args)
+                     if isinstance(t, DTensor)], memo=memo)
+                with rec:
+                    fn(*args)
+                got.append((rec.records, rec.flops, rec.peak))
+            assert got[0] == got[1], kind
+            assert len(rec._memo) > 0
 
 
 def test_peak_counts_storages_as_memtracker():

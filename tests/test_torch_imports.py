@@ -36,7 +36,8 @@ MODULES = ["repro_torch", "repro_torch.kernels.ops", "repro_torch.kernels.build"
            "repro_torch.memsys.tiered_kv", "repro_torch.serving.engine",
            "repro_torch.serving.serve_tiered", "repro_torch.configs",
            "repro_torch.configs.qwen2_5_14b", "repro_torch.core",
-           "repro_torch.quickstart", "repro_torch.obs",
+           "repro_torch.quickstart", "repro_torch.multitenant_sim",
+           "repro_torch.obs",
            "repro_torch.service", "repro_torch.models",
            "repro_torch.launch.analysis"] + CORE + OBS + SERVICE + CONFIGS \
     + MODELS + TRAINING + DISTRIBUTED
@@ -56,7 +57,8 @@ def test_no_source_imports_jax_or_repro():
 
 def test_simulator_modules_are_all_checked():
     assert CORE == ["repro_torch.core.alloc", "repro_torch.core.config",
-                    "repro_torch.core.migrate", "repro_torch.core.sim",
+                    "repro_torch.core.migrate", "repro_torch.core.ref",
+                    "repro_torch.core.sim",
                     "repro_torch.core.state", "repro_torch.core.sweep",
                     "repro_torch.core.tlbs", "repro_torch.core.workloads"]
 

@@ -362,6 +362,24 @@ def test_moe_seq_chunk_has_its_own_capacity():
     assert np.abs(whole.numpy() - f32(want)).max() > 1e-3
 
 
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("mlp,shared,top_k", [("swiglu", True, 1),
+                                              ("squared_relu", False, 2)])
+def test_moe_two_seq_chunks_match(mlp, shared, top_k, dtype):
+    """S = 2 * seq_chunk: the port's chunk loop against the reference's
+    scan over two chunks, output and aux loss."""
+    r = rng(10)
+    w = moe_weights(r, mlp, shared)
+    jw, tw = moe_both(w, dtype)
+    jx, tx = both(normal(r, (2, 16, 64)), dtype)
+    got, aux = tmoe.moe_apply(tw, tx, top_k=top_k, capacity_factor=1.0,
+                              mlp=mlp, seq_chunk=8)
+    want, jaux = jmoe.moe_apply(jw, jx, top_k=top_k, capacity_factor=1.0,
+                                mlp=mlp, seq_chunk=8)
+    close(got, want, dtype)
+    np.testing.assert_allclose(float(aux), float(jaux), rtol=F32_SUM)
+
+
 # --------------------------------------------------------------------------
 # Mamba
 # --------------------------------------------------------------------------
