@@ -232,19 +232,33 @@ def kv_cache_sharding(mesh, cache_tree):
     Dh/tp.  SSM/RWKV states shard their inner width over "model" and
     batch over DP.
     """
+    return tree_map(lambda s: named(mesh, _cache_spec(mesh, s.shape, 1)),
+                    cache_tree)
+
+
+def _cache_spec(mesh, shape, batch: int) -> Tuple:
+    """``kv_cache_sharding``'s spec of a state of ``shape`` whose batch dim
+    is ``batch``: the batch over DP and the trailing width over "model",
+    each where divisible."""
     dp = dp_axes(mesh)
     tp = "model" if "model" in mesh.mesh_dim_names else None
+    dims = [None] * len(shape)
+    if len(shape) > batch and shape[batch] % mesh_axis_size(mesh, dp) == 0:
+        dims[batch] = dp
+    # shard the trailing width over model if divisible
+    if tp and len(shape) >= batch + 2 \
+            and shape[-1] % mesh_axis_size(mesh, tp) == 0:
+        dims[-1] = tp
+    return tuple(dims)
 
-    def one(s):
-        shape = s.shape
-        dims = [None] * len(shape)
-        if len(shape) >= 2 and shape[1] % mesh_axis_size(mesh, dp) == 0:
-            dims[1] = dp                     # batch dim (after group stack)
-        # shard the trailing width over model if divisible
-        if tp and len(shape) >= 3 and shape[-1] % mesh_axis_size(mesh, tp) == 0:
-            dims[-1] = tp
-        return named(mesh, tuple(dims))
-    return tree_map(one, cache_tree)
+
+def kv_constraint(mesh):
+    """One layer's k or v [B, S, KH, Dh] redistributed as
+    ``kv_cache_sharding`` lays the stacked caches [G, B, S, KH, Dh] out
+    (``models.forward``'s ``kv_constraint``: no rank holds a prefill's
+    caches whole before they are stacked)."""
+    return lambda x: x.redistribute(
+        mesh, placements(_cache_spec(mesh, x.shape, 0), mesh))
 
 
 def distribute(tree, shardings):

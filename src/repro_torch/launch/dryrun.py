@@ -411,8 +411,9 @@ def build_cell(cfg, shape, mesh, variant=None, microbatch_hook=None):
         @torch.no_grad()
         def fn(params, batch):
             with implicit_replication():
-                out = model_mod.prefill(cfg, params, batch,
-                                        act_constraint=act)
+                out = model_mod.prefill(
+                    cfg, params, batch, act_constraint=act,
+                    kv_constraint=shard_mod.kv_constraint(mesh))
                 return _laid_out(out, auto_out_shardings(
                     mesh, out, shape.global_batch))
         return fn, (abs_params, abs_batch), fsdp

@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch.distributed.tensor import DTensor
 
-from .modules import on_head_shards, remat
+from .modules import on_ff_shards, on_head_shards, remat
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -216,9 +216,8 @@ def decode_attention(q, k_cache, v_cache, length=None, *, head_dim=None,
 # --------------------------------------------------------------------------
 # MLPs
 # --------------------------------------------------------------------------
-def mlp_apply(kind: str, x, w):
-    """w: dict of the MLP's weights (``model.param_specs``).  ``gelu`` is the
-    tanh approximation (``jax.nn.gelu``'s default)."""
+def _mlp(kind: str, x, w):
+    """The MLP up to its down projection (the output bias not added)."""
     if kind == "swiglu":
         g = x @ w["w_gate"]
         u = x @ w["w_up"]
@@ -231,5 +230,24 @@ def mlp_apply(kind: str, x, w):
     if kind == "gelu":
         h = x @ w["w_in"] + w["b_in"]
         h = F.gelu(h.float(), approximate="tanh").to(x.dtype)
-        return h @ w["w_out"] + w["b_out"]
+        return h @ w["w_out"]
     raise ValueError(kind)
+
+
+# each weight's hidden ("ff") dim
+_FF_DIM = {"w_gate": 1, "w_up": 1, "w_in": 1, "b_in": 0, "w_down": 0,
+           "w_out": 0}
+
+
+def mlp_apply(kind: str, x, w):
+    """w: dict of the MLP's weights (``model.param_specs``).  ``gelu`` is the
+    tanh approximation (``jax.nn.gelu``'s default).  A DTensor ``x`` (the
+    mesh path) runs it on each rank's batch and hidden shards
+    (``modules.on_ff_shards``)."""
+    if isinstance(x, DTensor):
+        ws = {k: v for k, v in w.items() if k in _FF_DIM}
+        y = on_ff_shards(functools.partial(_mlp, kind), x, ws,
+                         {k: _FF_DIM[k] for k in ws})
+    else:
+        y = _mlp(kind, x, w)
+    return y + w["b_out"] if kind == "gelu" else y

@@ -29,8 +29,10 @@ from ..configs.base import ArchConfig, torch_dtype
 from ..device import resolve_device
 from . import layers, mamba as mamba_mod, moe as moe_mod, rwkv as rwkv_mod
 from .modules import (REMAT_POLICIES, ParamSpec, abstract_params,
-                      init_params, merge_heads, remat, split_heads,
-                      tree_leaves, tree_map, whole)
+                      batch_layout, init_params, local_share, merge_heads,
+                      on_dims, pinned, reduce_over, remat, replicated,
+                      row_parallel, settled, split_heads, tree_leaves,
+                      tree_map, whole)
 
 F32 = torch.float32
 
@@ -183,13 +185,18 @@ def _group(tree, g: int):
     return tree_map(lambda a: a[g], tree)
 
 
-def _groups(tree) -> List[Dict]:
-    """Every group's views of a tree of stacked tensors, through one
-    ``unbind`` per leaf (whose backward stacks the groups' grads once,
-    where indexing would add a full-size zero tensor per group)."""
+def _groups(tree):
+    """Every group's views of a tree of stacked tensors, one group at a
+    time, through one ``unbind`` per leaf (whose backward stacks the
+    groups' grads once, where indexing would add a full-size zero tensor
+    per group).  A DTensor view is pinned to its layout as its group comes
+    up, so that the backward pass lays each group's grad out as its param
+    (a partial sum reduced into its shards) as soon as the group's own
+    backward ends: autograd runs a later-made node first, and a pin made
+    before the previous group's ops would wait for the last group."""
     parts = tree_map(lambda a: a.unbind(0), tree)
-    return [tree_map(lambda t: t[g], parts)
-            for g in range(_n_groups(tree))]
+    for g in range(_n_groups(tree)):
+        yield tree_map(lambda t: pinned(t[g]), parts)
 
 
 # ---------------------------------------------------------------------------
@@ -225,11 +232,11 @@ def _attn_full(cfg: ArchConfig, w, x, positions, mrope_pos=None):
         q = layers.apply_mrope(q, mrope_pos)
         k = layers.apply_mrope(k, mrope_pos)
     out = layers.chunked_attention(q, k, v, causal=not cfg.encoder_only)
-    return merge_heads(out) @ w["wo"], (k, v)
+    return row_parallel(merge_heads(out), w["wo"]), (k, v)
 
 
 def _apply_group_full(cfg: ArchConfig, kinds, gparams, x, positions,
-                      mrope_pos, collect_kv: bool):
+                      mrope_pos, collect_kv: bool, kv_constraint=None):
     """One period of layers (full-sequence mode).  Returns (x, aux, kvs)."""
     aux = torch.zeros((), dtype=F32, device=x.device)
     kvs = []
@@ -239,12 +246,13 @@ def _apply_group_full(cfg: ArchConfig, kinds, gparams, x, positions,
         if mixer == "attn":
             y, kv = _attn_full(cfg, p["attn"], h, positions, mrope_pos)
             if collect_kv:
-                kvs.append(kv)
+                kvs.append(kv if kv_constraint is None
+                           else tuple(kv_constraint(t) for t in kv))
         elif mixer == "mamba":
             y = mamba_mod.mamba_apply(p["mamba"], h)
         else:
             y = rwkv_mod.time_mix_apply(p["time_mix"], h)
-        x = x + y
+        x = x + settled(y)
         h = _norm(cfg, p, "norm2", x)
         if ffn == "moe":
             y, a = moe_mod.moe_apply(p["moe"], h, top_k=cfg.moe.top_k,
@@ -255,8 +263,44 @@ def _apply_group_full(cfg: ArchConfig, kinds, gparams, x, positions,
             y = layers.mlp_apply(cfg.mlp, h, p["mlp"])
         else:
             y = rwkv_mod.channel_mix_apply(p["channel_mix"], h)
-        x = x + y
+        x = x + settled(y)
     return x, aux, kvs
+
+
+def _vocab_slice(mesh, vocab, rows: int, ids):
+    """(``ids`` as indices into this rank's slice of a vocab sharded over
+    the mesh dims ``vocab``, ``rows`` ids a slice, clamped into it; the
+    mask of the ids the slice holds)."""
+    first = 0
+    for i in sorted(vocab):
+        first = first * mesh.size(i) + mesh.get_local_rank(i)
+    t = ids.long() - first * rows
+    return t.clamp(0, rows - 1), (t >= 0) & (t < rows)
+
+
+def _lookup(embed, tokens):
+    """``embed[tokens]``.  A DTensor table has its embed dim gathered first
+    (under ``FSDP_RULES`` it is sharded over "data", as the batch is, and
+    DTensor would gather the batch, then the whole [B, S, D] result), and
+    one sharded over its vocab is read on each rank's vocab slice and its
+    batch rows: each rank looks up the tokens its slice holds, the rows
+    are summed across the vocab ranks, and the table's grad stays on the
+    slice (DTensor's ``index`` gathers the whole table, and the backward
+    of its ``embedding`` makes a grad of the whole table on every rank)."""
+    if not isinstance(embed, DTensor):
+        return embed[tokens]
+    embed = whole(embed, -1)
+    mesh = embed.device_mesh
+    vocab = {i for i, p in enumerate(embed.placements) if p == Shard(0)}
+    if not vocab:
+        return embed[tokens]
+    tokens = replicated(tokens, mesh)
+    batch, tpl = batch_layout(tokens, vocab)
+    table = local_share(embed, on_dims(mesh.ndim, vocab, Shard(0)), batch)
+    t, mine = _vocab_slice(mesh, vocab, table.shape[0],
+                           tokens.redistribute(mesh, tpl).to_local())
+    return reduce_over(torch.where(mine[..., None], table[t], 0), mesh,
+                       vocab, pl=tpl)
 
 
 def _embed(cfg: ArchConfig, params, batch):
@@ -266,7 +310,7 @@ def _embed(cfg: ArchConfig, params, batch):
         x = batch["frame_embeds"].to(dt)
         pe = layers.sinusoidal_positions(x.shape[1], cfg.d_model, x.device)
         return x + pe.to(x.dtype), None
-    x = params["embed"][batch["tokens"]]
+    x = _lookup(params["embed"], batch["tokens"])
     mrope_pos = None
     if cfg.frontend == "vision":
         patches = batch["patch_embeds"].to(x.dtype) @ params["patch_proj"]
@@ -284,7 +328,8 @@ def _logits_chunk(cfg, params, h):
 
 
 def forward(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
-            collect_kv: bool = False, act_constraint=None):
+            collect_kv: bool = False, act_constraint=None,
+            kv_constraint=None):
     """Full-sequence forward.  Returns (hidden [B,S,D], aux, kv_caches).
 
     ``kv_caches``: one (k, v) pair per attention position of the period,
@@ -296,6 +341,8 @@ def forward(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
     depend on it, and without autograd it costs nothing.
     ``act_constraint``: optional fn applied to the [B,S,D] residual stream
     at every group boundary.
+    ``kv_constraint``: optional fn applied to each layer's collected k and
+    v [B,S,KH,Dh] (``sharding.kv_constraint``).
     """
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r} not in "
@@ -309,7 +356,7 @@ def forward(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
 
     def group_fn(gparams, x):
         y, aux, kv = _apply_group_full(cfg, kinds, gparams, x, positions,
-                                       mrope_pos, collect_kv)
+                                       mrope_pos, collect_kv, kv_constraint)
         if act_constraint is not None:
             y = act_constraint(y)
         return y, aux, kv
@@ -326,8 +373,39 @@ def forward(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
     return x, torch.stack(auxs).sum(), stacked
 
 
+def _vocab_parallel_loss_chunk(head, hc, tc, vocab):
+    """``_loss_chunk`` on each rank's batch rows and vocab slice, where the
+    DTensor ``head`` [D, V] shards V over the mesh dims ``vocab``: the
+    logits stay [B / dp, C, V / tp] (the reference's GSPMD layout), the
+    logsumexp combines each rank's max and sum of exponentials over the
+    vocab ranks, and the target's logit comes from the rank whose slice
+    holds it (a mask, then a sum over the vocab ranks).  Returns the sum
+    as a 0-dim DTensor, partial over the batch's mesh dims."""
+    mesh = head.device_mesh
+    batch, xpl = batch_layout(hc, vocab)
+    hc_l = local_share(hc, xpl, vocab)
+    head_l = local_share(head, on_dims(mesh.ndim, vocab, Shard(1)), batch)
+    tc_l = replicated(tc, mesh).redistribute(mesh, xpl).to_local()
+
+    def over_vocab(x, op):
+        return reduce_over(x, mesh, vocab, op).to_local()
+    logits = (hc_l @ head_l).to(F32)
+    mx = over_vocab(logits.detach().amax(dim=-1), "max")
+    lse = mx + torch.log(over_vocab(
+        torch.exp(logits - mx[..., None]).sum(dim=-1), "sum"))
+    t, mine = _vocab_slice(mesh, vocab, logits.shape[-1], tc_l)
+    picked = torch.gather(logits, -1, t[..., None])[..., 0]
+    picked = over_vocab(torch.where(mine, picked, 0.0), "sum")
+    return DTensor.from_local((lse - picked).sum(), mesh,
+                              on_dims(mesh.ndim, batch, Partial()))
+
+
 def _loss_chunk(head, hc, tc):
     """Summed cross entropy of one chunk: hc [B, C, D], tc [B, C]."""
+    if isinstance(head, DTensor):
+        vocab = {i for i, p in enumerate(head.placements) if p == Shard(1)}
+        if vocab:
+            return _vocab_parallel_loss_chunk(head, hc, tc, vocab)
     logits = whole((hc @ head).to(F32), -1)
     lse = torch.logsumexp(logits, dim=-1)
     picked = torch.gather(logits, -1, tc[..., None].long())[..., 0]
@@ -358,11 +436,12 @@ def lm_loss(cfg: ArchConfig, params, batch, *, remat_policy: str = "full",
 
 
 def prefill(cfg: ArchConfig, params, batch, *, remat_policy: str = "none",
-            act_constraint=None):
+            act_constraint=None, kv_constraint=None):
     """Returns (last-token logits [B, V], stacked KV caches per position)."""
     h, _, kvs = forward(cfg, params, batch, remat_policy=remat_policy,
                         collect_kv=cfg.n_heads > 0 and not cfg.rwkv,
-                        act_constraint=act_constraint)
+                        act_constraint=act_constraint,
+                        kv_constraint=kv_constraint)
     logits = _logits_chunk(cfg, params, h[:, -1:, :])[:, 0]
     return logits, kvs
 
@@ -492,7 +571,7 @@ def decode_step(cfg: ArchConfig, params, state: Dict, tokens,
     in place.
     """
     kinds = layer_kinds(cfg)
-    x = params["embed"][tokens]                          # [B, D]
+    x = _lookup(params["embed"], tokens)                 # [B, D]
     B, D = x.shape
     H, KH, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     if any(m == "attn" for m, _ in kinds):

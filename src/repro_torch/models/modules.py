@@ -14,8 +14,14 @@ declaration we derive:
 and ``remat``, the reference's ``jax.remat`` under autograd; ``whole``
 and ``split_heads`` / ``merge_heads`` gather a dim of a DTensor where an
 op has no sharding rule across it, ``on_head_shards`` runs attention
-on each rank's batch and head shards and ``on_shards`` a step loop on
-each rank's shards (plain tensors pass through all five as they are).
+on each rank's batch and head shards, ``on_ff_shards`` an MLP on its
+batch and hidden shards and ``on_shards`` a step loop on each rank's
+shards (plain tensors pass through the first three as they are);
+``local_share`` is the local shard whose grad is the rank's share, and
+``on_dims``, ``batch_layout``, ``replicated`` and ``reduce_over`` lay out
+and reduce the shard-local paths' values; ``row_parallel`` and
+``settled`` lay a row-parallel product and its pending sum out as GSPMD
+does.
 """
 from __future__ import annotations
 
@@ -169,6 +175,61 @@ def split_heads(x, n: int, d: int, groups: int):
     return x.reshape(tuple(x.shape[:-1]) + (n, d))
 
 
+def _global(y, mesh, pl):
+    """The DTensor whose local shard on this rank is ``y``, laid out as
+    ``pl`` (equal shards, a contiguous global stride)."""
+    shape = list(y.shape)
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard):
+            shape[p.dim] *= mesh.size(i)
+    return DTensor.from_local(
+        y, mesh, pl, shape=torch.Size(shape),
+        stride=tuple(math.prod(shape[i + 1:]) for i in range(len(shape))))
+
+
+def on_dims(ndim: int, dims, p) -> list:
+    """Placements over a mesh of ``ndim`` dims: ``p`` on the mesh dims
+    ``dims``, ``Replicate()`` on the others."""
+    return [p if i in dims else Replicate() for i in range(ndim)]
+
+
+def batch_layout(x, sharded):
+    """(the mesh dims outside ``sharded`` on which the DTensor ``x`` shards
+    its dim 0, the placements that keep those shards and replicate the
+    rest): the batch layout of a shard-local path whose other mesh dims
+    ``sharded`` split something else."""
+    batch = {i for i, p in enumerate(x.placements)
+             if i not in sharded and p == Shard(0)}
+    return batch, on_dims(x.device_mesh.ndim, batch, Shard(0))
+
+
+def replicated(x, mesh):
+    """``x`` as a DTensor on ``mesh``: a plain tensor replicated over it,
+    a DTensor as it is."""
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def reduce_over(x, mesh, dims, op: str = "sum", pl=None):
+    """The DTensor laid out as ``pl`` (replicated if None) whose local value
+    is each rank's ``x`` reduced (``op``) over the mesh dims ``dims``."""
+    pl = [Replicate()] * mesh.ndim if pl is None else pl
+    return DTensor.from_local(x, mesh, [
+        Partial(op) if i in dims else p for i, p in enumerate(pl)
+    ]).redistribute(mesh, pl)
+
+
+def local_share(x, pl, summed):
+    """The local shard of the DTensor ``x`` laid out as ``pl``, its grad
+    in the backward pass summed over the mesh dims ``summed``: where the
+    shard is replicated but each rank uses it for its share of the work,
+    each rank's grad is its share of the sum."""
+    return x.redistribute(x.device_mesh, pl).to_local(grad_placements=[
+        Partial() if i in summed else p for i, p in enumerate(pl)])
+
+
 def on_head_shards(fn: Callable, q, k, v, n_kv: int):
     """``fn(q, k, v)`` (attention: q [B, S, H, Dh], k / v [B, S, n_kv, Dh],
     a result shaped as q) on each rank's shards of the DTensors q, k, v:
@@ -190,11 +251,7 @@ def on_head_shards(fn: Callable, q, k, v, n_kv: int):
         pl = [Replicate() if isinstance(p, Shard) and p.dim == 0 else p
               for p in pl]
     q, k, v = (x.redistribute(mesh, pl) for x in (q, k, v))
-    out = fn(q.to_local(), k.to_local(), v.to_local())
-    shape = tuple(q.shape)
-    return DTensor.from_local(
-        out, mesh, pl, shape=torch.Size(shape),
-        stride=tuple(math.prod(shape[i + 1:]) for i in range(len(shape))))
+    return _global(fn(q.to_local(), k.to_local(), v.to_local()), mesh, pl)
 
 
 def on_shards(fn: Callable, like, args, dims, out_dims):
@@ -228,18 +285,34 @@ def on_shards(fn: Callable, like, args, dims, out_dims):
         grad = [Partial() if p is not None and p.dim not in dmap else q
                 for p, q in zip(pl, apl)]
         local.append(a.redistribute(mesh, apl).to_local(grad_placements=grad))
-    outs = []
-    for y, dmap in zip(fn(*local), out_dims):
-        ypl = layout(dmap)
-        shape = list(y.shape)
-        for i, p in enumerate(ypl):
-            if isinstance(p, Shard):
-                shape[p.dim] *= mesh.size(i)
-        outs.append(DTensor.from_local(
-            y, mesh, ypl, shape=torch.Size(shape),
-            stride=tuple(math.prod(shape[i + 1:])
-                         for i in range(len(shape)))))
-    return tuple(outs)
+    return tuple(_global(y, mesh, layout(dmap))
+                 for y, dmap in zip(fn(*local), out_dims))
+
+
+def on_ff_shards(fn: Callable, x, w: dict, ff: dict):
+    """``fn(x, w)`` (an MLP: x [B, ..., D], weights ``w`` whose hidden dim
+    is ``ff[name]``, the result the down projection [B, ..., D]) on each
+    rank's shards of the DTensor ``x``: x keeps its batch shards and is
+    gathered in every other dim, each weight keeps the shards of its
+    hidden dim (on the mesh dims that shard every weight's) and is
+    gathered in every other dim, so the hidden layer stays [B / dp, ...,
+    F / tp] (Megatron's tensor parallelism, the layout GSPMD gives the
+    reference).  Each rank's result is its partial sum of the down
+    projection over the hidden shards; it comes back summed and laid out
+    as ``x`` (replicated where ``x`` is a pending sum).  The local ops are
+    the one-device path's."""
+    mesh = x.device_mesh
+    w = {k: replicated(v, mesh) for k, v in w.items()}
+    ffd = {i for i in range(mesh.ndim)
+           if all(v.placements[i] == Shard(ff[k]) for k, v in w.items())}
+    batch, xpl = batch_layout(x, ffd)
+    x_l = local_share(x, xpl, ffd)
+    w_l = {k: local_share(v, on_dims(mesh.ndim, ffd, Shard(ff[k])), batch)
+           for k, v in w.items()}
+    y = _global(fn(x_l, w_l), mesh,
+                [Partial() if i in ffd else p for i, p in enumerate(xpl)])
+    return y.redistribute(mesh, [Replicate() if p.is_partial() else p
+                                 for p in x.placements])
 
 
 def merge_heads(x):
@@ -247,7 +320,40 @@ def merge_heads(x):
     forward layout, so that the backward pass's grad of the merged dim
     comes back in a layout the reshape can split again (DTensor shards a
     split dim only through its leading part)."""
-    y = x.reshape(tuple(x.shape[:-2]) + (-1,))
-    if isinstance(y, DTensor):
-        y = y.redistribute(y.device_mesh, y.placements)
-    return y
+    return pinned(x.reshape(tuple(x.shape[:-2]) + (-1,)))
+
+
+def row_parallel(x, w):
+    """``x @ w`` where the DTensor ``w`` shards its dim 0 over some mesh
+    dims on which ``x`` is replicated: ``x`` is first cut into the
+    matching slices of its last dim (local, no traffic), so that each
+    rank's product is its partial sum and ``w``'s grad is computed and
+    reduced at ``w``'s shard (left whole, ``x`` is what the backward pass
+    keeps, and ``w``'s grad comes out whole on every rank, to be summed
+    whole over the data ranks); anything else as ``x @ w``."""
+    if isinstance(x, DTensor) and isinstance(w, DTensor):
+        pl = [Shard(x.dim() - 1) if q == Shard(0) and p == Replicate()
+              else p for p, q in zip(x.placements, w.placements)]
+        if pl != list(x.placements):
+            x = x.redistribute(x.device_mesh, pl)
+    return x @ w
+
+
+def settled(x):
+    """A DTensor with its pending sums resolved: each ``Partial`` mesh dim
+    replicated (the all-reduce GSPMD places at a row-parallel product's
+    output, before the residual add; left pending, the next norm
+    scatters the rows over that mesh dim and the backward pass gathers
+    whole weights to meet them); anything else as it is."""
+    if isinstance(x, DTensor) and any(p.is_partial() for p in x.placements):
+        return x.redistribute(x.device_mesh, [
+            Replicate() if p.is_partial() else p for p in x.placements])
+    return x
+
+
+def pinned(x):
+    """A DTensor as it is, but its grad in the backward pass laid out as
+    ``x`` is (an identity ``redistribute``); anything else as it is."""
+    if isinstance(x, DTensor):
+        return x.redistribute(x.device_mesh, x.placements)
+    return x

@@ -114,8 +114,21 @@ def route(router, x, *, top_k: int, capacity_factor: float) -> Routing:
     return Routing(probs, gate_vals, sel, pos, keep, dispatch, combine, aux)
 
 
+class _Dense(torch.autograd.Function):
+    """The identity, its result and its grad each made contiguous."""
+
+    @staticmethod
+    def forward(ctx, h):
+        return h.contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def _dense(h):
-    """``h`` as it is, or, for a DTensor, with a contiguous layout.
+    """``h`` as it is, or, for a DTensor, with a contiguous layout, its
+    grad in the backward pass too.
 
     Where DTensor runs the up-projections by gathering the batch (FSDP
     weights that outweigh the activations, as at Maverick's full width),
@@ -123,8 +136,12 @@ def _dense(h):
     global strides say expert-major.  The down-projection's ``einsum``
     permutes to (e, b, c, f) and merges (b, c): a view by the global
     strides, which the local shard cannot take.  A contiguous copy makes
-    the two layouts agree.  The one-device path keeps its ops."""
-    return h.contiguous() if isinstance(h, DTensor) else h
+    the two layouts agree.  The grad of ``h`` that the down-projection's
+    backward pass gives comes back batch-major too where the experts shard
+    over "data" (``MOE_EP_RULES``, in 4 microbatches at Maverick's full
+    width), and the up-projections' backward merges it the same way.  The
+    one-device path keeps its ops."""
+    return _Dense.apply(h) if isinstance(h, DTensor) else h
 
 
 def moe_apply(w, x, *, top_k: int, capacity_factor: float,

@@ -10,10 +10,12 @@ place under ``torch.no_grad()`` (the reference donates them to its jitted
 step) and returns the same trees.
 
 On a mesh the leaves are DTensors (``distributed.sharding``): the
-moments shard like their params, the global norm is a replicated scalar,
-and the step counter is a replicated 0-dim DTensor whose local value
-drives the schedule and the bias corrections (plain tensors, the same on
-every rank); the caller runs the update under DTensor's
+moments shard like their params (the factored update takes its row and
+column means across the ranks and runs its elementwise tail on each
+rank's shard of the param, never gathering one), the global norm is a
+replicated scalar, and the step counter is a replicated 0-dim DTensor
+whose local value drives the schedule and the bias corrections (plain
+tensors, the same on every rank); the caller runs the update under DTensor's
 ``implicit_replication`` (``training.train`` does).
 
 ``zero1`` is a field that nothing reads, as in the reference (whose
@@ -27,7 +29,7 @@ import math
 from typing import Any, Dict, Tuple
 
 import torch
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..libm import powf
 from ..models.modules import tree_leaves, tree_map
@@ -148,6 +150,26 @@ def _local(t: torch.Tensor) -> torch.Tensor:
     return t.to_local() if isinstance(t, DTensor) else t
 
 
+def _laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """A DTensor ``x`` redistributed to ``like``'s placements (a partial
+    mean summed into its shards); a plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    return x.redistribute(like.device_mesh, like.placements)
+
+
+def _local_beside(x: torch.Tensor, p: torch.Tensor, dims) -> torch.Tensor:
+    """The local shard of ``x`` that broadcasts against ``p``'s: ``dims``
+    maps each dim of ``p`` that ``x`` has to its dim in ``x``; ``x`` is
+    sharded as ``p`` across those and replicated across the mesh dims that
+    shard the rest.  A plain tensor as it is."""
+    if not isinstance(x, DTensor):
+        return x
+    pl = [Shard(dims[q.dim]) if isinstance(q, Shard) and q.dim in dims
+          else Replicate() for q in p.placements]
+    return x.redistribute(x.device_mesh, pl).to_local()
+
+
 def _bias_correction(b: float, step: torch.Tensor) -> torch.Tensor:
     """``1 - b ** step`` in f32 on the step's device (glibc's ``powf``,
     as the reference's)."""
@@ -195,21 +217,30 @@ def _factored_update(cfg: OptConfig, params, grads, opt_state):
     def upd(p, g, m, vr, vc):
         g = g.to(F32)
         g2 = torch.square(g) + tiny
-        if g.dim() >= 2:
-            vr_new = b2 * vr + one_b2 * torch.mean(g2, dim=-1)
-            vc_new = b2 * vc + one_b2 * torch.mean(g2, dim=-2)
-            denom = torch.sqrt(
-                vr_new[..., :, None] * vc_new[..., None, :]
-                / torch.clamp(torch.mean(vr_new, dim=-1, keepdim=True)
-                              [..., None], min=tiny))
+        nd = g.dim()
+        same = {d: d for d in range(nd)}
+        if nd >= 2:
+            vr_new = b2 * vr + one_b2 * _laid_out_as(
+                torch.mean(g2, dim=-1), vr)
+            vc_new = b2 * vc + one_b2 * _laid_out_as(
+                torch.mean(g2, dim=-2), vc)
+            lead = {d: d for d in range(nd - 2)}
+            rows = _local_beside(vr_new, p, {**lead, nd - 2: nd - 2})
+            cols = _local_beside(vc_new, p, {**lead, nd - 1: nd - 2})
+            mean = _local_beside(torch.mean(vr_new, dim=-1, keepdim=True),
+                                 p, lead)
+            denom = torch.sqrt(rows[..., :, None] * cols[..., None, :]
+                               / torch.clamp(mean[..., None], min=tiny))
         else:
             vr_new = b2 * vr + one_b2 * g2
             vc_new = vc
-            denom = torch.sqrt(vr_new)
-        m_new = b1 * m.to(F32) + one_b1 * g
-        delta = m_new / (denom + eps) + wd * p.to(F32)
-        p.copy_((p.to(F32) - lr * delta).to(p.dtype))
-        m.copy_(m_new.to(torch.bfloat16))
+            denom = torch.sqrt(_local_beside(vr_new, p, same))
+        # the elementwise tail on each rank's shard of p
+        p_l, m_l = _local(p), _local(m)
+        m_new = b1 * m_l.to(F32) + one_b1 * _local_beside(g, p, same)
+        delta = m_new / (denom + eps) + wd * p_l.to(F32)
+        p_l.copy_((p_l.to(F32) - lr * delta).to(p.dtype))
+        m_l.copy_(m_new.to(torch.bfloat16))
         vr.copy_(vr_new)
         if vc_new is not vc:
             vc.copy_(vc_new)

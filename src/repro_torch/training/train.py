@@ -40,7 +40,7 @@ from torch.distributed.tensor.experimental import implicit_replication
 
 from ..configs.base import ArchConfig, torch_dtype
 from ..device import resolve_device
-from ..distributed.sharding import dp_axes, placements
+from ..distributed.sharding import dp_axes, mesh_axis_size, placements
 from ..models import lm_loss
 from ..models.modules import tree_leaves, tree_map
 from . import optimizer as opt_mod
@@ -60,34 +60,49 @@ class TrainConfig:
     opt: opt_mod.OptConfig = opt_mod.OptConfig()
 
 
-def _constraint(mesh, spec):
-    """[B, S, D] DTensors redistributed to ``spec``'s placements; the
-    identity on a plain tensor."""
-    target = placements(spec, mesh)
+def _rows_axes(mesh, rows: int):
+    """The DP axes that shard ``rows`` batch rows evenly, as a spec entry:
+    all of them, or, where their product does not divide ``rows`` (a
+    microbatch of 16 rows on the multi-pod mesh's 32 DP ranks), the inner
+    ones whose product does, the rows replicated over the rest (each rank
+    holds the one row a device of the reference's padded GSPMD layout
+    holds); None where no DP axis divides them."""
+    dp = dp_axes(mesh)
+    dp = dp if isinstance(dp, tuple) else (dp,)
+    while dp and rows % mesh_axis_size(mesh, dp):
+        dp = dp[1:]
+    return dp[0] if len(dp) == 1 else (dp or None)
 
+
+def _constraint(mesh, seq: bool):
+    """[B, S, D] DTensors redistributed to B over the DP axes that divide
+    it (``_rows_axes``) and, with ``seq``, S over "model"; the identity on a
+    plain tensor."""
     def constrain(x):
         if not isinstance(x, DTensor):
             return x
-        return x.redistribute(mesh, target)
+        spec = (_rows_axes(mesh, x.shape[0]), "model" if seq else None, None)
+        return x.redistribute(mesh, placements(spec, mesh))
     return constrain
 
 
 def batch_constraint(mesh):
     """DP-only activation constraint: [B, S, D] batch over ("pod","data"),
     replicated over the rest."""
-    return _constraint(mesh, (dp_axes(mesh), None, None))
+    return _constraint(mesh, False)
 
 
 def seq_constraint(mesh):
     """Sequence-parallel activation constraint: [B, S, D] -> S over model."""
-    return _constraint(mesh, (dp_axes(mesh), "model", None))
+    return _constraint(mesh, True)
 
 
 def _shard_rows(x: torch.Tensor, mesh, dim: int = 0) -> DTensor:
     """``x`` (the same full tensor on every rank) as a DTensor with ``dim``
-    sharded over the DP axes: each rank keeps its rows."""
+    sharded over the DP axes that divide it (``_rows_axes``): each rank
+    keeps its rows."""
     spec = [None] * x.dim()
-    spec[dim] = dp_axes(mesh)
+    spec[dim] = _rows_axes(mesh, x.shape[dim])
     return distribute_tensor(x, mesh, placements(tuple(spec), mesh),
                              src_data_rank=None)
 

@@ -13,10 +13,11 @@ reductions in another order than the one-device step, so the loss is
 held to rtol 1e-5, the moments to 1e-4 of each leaf's largest, and a
 param to ``2 lr + 1e-5`` per step taken: Adam's first step moves an
 element by about ``lr`` either way where its grad lies within rounding
-of 0.  The int8 compressed step is held to the JAX package's in quanta of
-the shared scale: each rank's quantized grad may round the other way
-where its f32 grad differs in the last bits, so the mean over ranks
-may differ by one quantum.
+of 0.  The factored update's bf16 first moment is held to one bf16
+rounding step of each element per step taken.  The int8 compressed step
+is held to the JAX package's in quanta of the shared scale: each rank's
+quantized grad may round the other way where its f32 grad differs in the
+last bits, so the mean over ranks may differ by one quantum.
 """
 import fcntl
 import json
@@ -193,7 +194,60 @@ MESH_STEP_CODE = f"""
         sharded = sum(any(pl.is_shard() for pl in x.placements)
                       for x in tree_leaves(p))
         got[name] = dict(rows=out, sharded=sharded)
+    fac = []
+    tcf = dataclasses.replace(tc, opt=dataclasses.replace(tc.opt,
+                                                          factored=True))
+    one_f = ttrain.make_train_step(cfg, tcf, device="cpu")
+    step_f = ttrain.make_train_step(cfg, tcf, mesh)
+    fp = fresh()
+    fs = topt.init_opt_state(fp, factored=True)
+    p = sh.distribute(fresh(), sh.param_shardings(specs, mesh, sh.FSDP_RULES))
+    s = sh.distribute(topt.init_opt_state(fresh(), factored=True),
+                      sh.opt_state_shardings(specs, mesh, sh.FSDP_RULES,
+                                             factored=True))
+    for b in batches:
+        fp, fs, om = one_f(fp, fs, b)
+        p, s, m = step_f(p, s, b)
+        perr = max(float((a.full_tensor() - w).abs().max())
+                   for a, w in zip(tree_leaves(p), tree_leaves(fp)))
+        merr = max(float((a.full_tensor() - w).abs().max()
+                         / max(float(w.abs().max()), 1e-30))
+                   for k in ("vr", "vc") for a, w in
+                   zip(tree_leaves(s[k]), tree_leaves(fs[k])))
+        # the bf16 first moment: its error in units of the larger of one
+        # bf16 rounding step of the element and 1e-4 of the leaf's largest
+        mq = max(float(((a.full_tensor().float() - w.float()).abs()
+                        / torch.clamp(w.float().abs() * 2.0 ** -7,
+                                      min=1e-4 * float(w.float().abs().max())
+                                      + 1e-30)).max())
+                 for a, w in zip(tree_leaves(s["m"]), tree_leaves(fs["m"])))
+        fac.append(dict(loss=float(m["loss"]), want=float(om["loss"]),
+                        lr=float(om["lr"]), perr=perr, merr=merr, mq=mq,
+                        step=int(s["step"].full_tensor())))
+    got["factored"] = fac
     from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.models import model as tmodel
+    chunks = []
+    vp = tmodel._vocab_parallel_loss_chunk
+    tmodel._vocab_parallel_loss_chunk = lambda *a: chunks.append(1) or vp(*a)
+    pv = sh.distribute(fresh(), sh.param_shardings(specs, mesh))
+    bv = {{k: ttrain._shard_rows(v, mesh) for k, v in batches[0].items()}}
+    p1 = fresh()
+    for t in tree_leaves(p1) + tree_leaves(pv):
+        t.requires_grad_(True)
+    l1 = models.lm_loss(cfg, p1, batches[0])
+    g1 = torch.autograd.grad(l1, tree_leaves(p1))
+    with implicit_replication():
+        lv = models.lm_loss(cfg, pv, bv,
+                            act_constraint=ttrain.seq_constraint(mesh))
+        gv = torch.autograd.grad(lv, tree_leaves(pv))
+    tmodel._vocab_parallel_loss_chunk = vp
+    got["vocab"] = dict(
+        chunks=len(chunks),
+        loss=abs(float(lv.full_tensor()) - float(l1)) / abs(float(l1)),
+        grads=max(float((a.full_tensor() - w).abs().max()
+                        / max(float(w.abs().max()), 1e-30))
+                  for a, w in zip(gv, g1)))
     serve = sh.distribute(fresh(), sh.param_shardings(specs, mesh))
     one_st = models.init_decode_state(cfg, 4, 32, device="cpu")
     st = sh.distribute(models.init_decode_state(cfg, 4, 32, device="cpu"),
@@ -257,6 +311,46 @@ MESH_STEP_CODE = f"""
     got["loops"] = loops
     print(json.dumps(got))
     """
+
+
+def test_factored_update_on_mesh_matches_one_device(tmp_path_factory):
+    """The factored AdamW update (Adafactor-style second moment, bf16
+    first moment) on the (2, 2) mesh under ``FSDP_RULES``, its row and
+    column means taken across the ranks and its elementwise tail on each
+    rank's shard: two steps of reduced Qwen1.5-0.5B in f32 against the
+    one-device factored step, the loss to rtol 1e-5, the params to ``2 lr
+    + 1e-5`` per step, the factored moments to 1e-4 of each leaf's largest
+    and the bf16 first moment to one bf16 rounding step of each element
+    (``2^-7`` of it) per step taken, or 1e-4 of the leaf's largest (its
+    f32 value, summed in another order, may round the other way).  Read
+    from the mesh step's spawn of the ranks."""
+    rows, _ = shared_ranks(tmp_path_factory, "mesh_step", lambda _: (
+        QWEN_F32, MESH_STEP_CODE))
+    rows = [r["factored"] for r in rows]
+    for r in rows:
+        assert r == rows[0]
+    budget = 1e-5
+    for i, row in enumerate(rows[0]):
+        budget += 2 * row["lr"]
+        assert row["step"] == i + 1
+        assert abs(row["loss"] - row["want"]) <= 1e-5 * abs(row["want"]), row
+        assert row["perr"] <= budget, (row, budget)
+        assert row["merr"] <= 1e-4 and row["mq"] <= i + 1, row
+
+
+def test_vocab_parallel_loss_matches_one_device(tmp_path_factory):
+    """``lm_loss`` of reduced Qwen1.5-0.5B in f32 on the (2, 2) mesh under
+    ``DEFAULT_RULES`` (the tied head's vocab over "model", the residual
+    stream over "data" and "model") runs each loss chunk vocab-parallel
+    and equals one device's: the loss to rtol 1e-5, each grad within 1e-5
+    of its largest.  Read from the mesh step's spawn of the ranks."""
+    rows, _ = shared_ranks(tmp_path_factory, "mesh_step", lambda _: (
+        QWEN_F32, MESH_STEP_CODE))
+    rows = [r["vocab"] for r in rows]
+    for r in rows:
+        assert r == rows[0]
+    assert rows[0]["chunks"] >= 1
+    assert rows[0]["loss"] <= 1e-5 and rows[0]["grads"] <= 1e-5, rows[0]
 
 
 def test_decode_step_on_mesh_keeps_the_cache_sharded(tmp_path_factory):

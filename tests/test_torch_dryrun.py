@@ -97,10 +97,10 @@ def shard_bytes(tree, shardings) -> int:
                for x, sh in zip(leaves, shs))
 
 
-def reference_argument_bytes(jc, shape, mesh, fsdp: bool) -> int:
+def reference_argument_bytes(jc, shape, mesh, rules) -> int:
     """What the reference's shardings give one device of the cell's
-    arguments (params, optimizer state, batch or decode state)."""
-    rules = jsh.FSDP_RULES if fsdp else jsh.DEFAULT_RULES
+    arguments (params, optimizer state, batch or decode state) under the
+    rule set ``rules``."""
     specs = jm.param_specs(jc)
     params = jm.make_abstract_params(jc)
     total = shard_bytes(params, jsh.param_shardings(specs, mesh, rules))
@@ -123,22 +123,42 @@ REDUCED = ["qwen1.5-0.5b", "llama4-scout-17b-16e", "qwen2-vl-2b",
            "hubert-xlarge", "rwkv6-3b", "jamba-v0.1-52b"]
 
 
-@pytest.mark.parametrize("arch", REDUCED)
-def test_dry_run_of_reduced_cells_on_a_fake_mesh(arch, tmp_path):
+@pytest.mark.parametrize("arch, mesh_shape, variant, overrides", [
+    pytest.param(a, (2, 4), None, None, id=a) for a in REDUCED] + [
+    # the multi-pod mesh's ("pod", "data") DP axes, its train cell in 4
+    # microbatches of 2 rows, fewer than the 4 DP ranks, as the full
+    # cells' 16 rows on 32 (attention's reshape failed on a batch sharded
+    # unevenly)
+    pytest.param("qwen1.5-0.5b", (2, 2, 2), None, dict(microbatches=4),
+                 id="multipod"),
+    # experts over "data", the dense weights over "model" only
+    pytest.param("llama4-maverick-400b-a17b", (2, 4), "moe_ep_tp", None,
+                 id="moe_ep_tp")])
+def test_dry_run_of_reduced_cells_on_a_fake_mesh(arch, mesh_shape, variant,
+                                                 overrides, tmp_path,
+                                                 monkeypatch):
     """Train, prefill and decode of a reduced arch as rank 0 of a fake
-    (2, 4) mesh: each ``ok`` (or skipped for the reference's reason),
-    with the reference's counts, the argument bytes its ``spec_for``
-    gives one device, FLOPs above the analytic count's per-rank share
-    and collectives on both axes."""
+    (2, 4) or (2, 2, 2) mesh (with the variant's rules for its train
+    cell): each ``ok`` (or skipped for the reference's reason), with the
+    reference's counts, the argument bytes its ``spec_for`` gives one
+    device, FLOPs above the analytic count's per-rank share and
+    collectives on both axes."""
     cfg = configs.reduced(configs.get_config(arch))
     jc = jcfg.reduced(jcfg.get_config(arch))
-    mesh = AbstractMesh((2, 4), ("data", "model"))
+    names = ("data", "model") if len(mesh_shape) == 2 \
+        else ("pod", "data", "model")
+    mesh = AbstractMesh(mesh_shape, names)
+    if variant:
+        monkeypatch.setitem(dryrun.PERF_VARIANTS[variant],
+                            (cfg.name, "train_s"), dict(rules=variant))
+    if overrides:
+        monkeypatch.setitem(dryrun.TRAIN_OVERRIDES, cfg.name, overrides)
     for kind in ("train", "prefill", "decode"):
         shape = ShapeConfig(f"{kind}_s", 64, 8, kind)
         jshape = jcfg.base.ShapeConfig(f"{kind}_s", 64, 8, kind)
-        rec = dryrun.run_cell(arch, shape.name, "fake2x4", force=True,
-                              cfg=cfg, shape=shape, mesh_shape=(2, 4),
-                              out_dir=tmp_path)
+        rec = dryrun.run_cell(arch, shape.name, "fake", force=True,
+                              cfg=cfg, shape=shape, mesh_shape=mesh_shape,
+                              out_dir=tmp_path, variant=variant)
         assert rec["n_params"] == jc.n_params()
         assert rec["n_active"] == jc.n_active_params()
         assert rec["model_flops"] == jan.model_flops(jc, jshape)
@@ -148,8 +168,11 @@ def test_dry_run_of_reduced_cells_on_a_fake_mesh(arch, tmp_path):
             continue
         assert rec["status"] == "ok", rec.get("traceback")
         assert rec["n_chips"] == 8
+        rules = jsh.FSDP_RULES if rec["rules_fsdp"] else jsh.DEFAULT_RULES
+        if variant and kind == "train":
+            rules = jsh.RULE_SETS[variant]
         assert rec["memory"]["argument_bytes"] == reference_argument_bytes(
-            jc, jshape, mesh, rec["rules_fsdp"]), kind
+            jc, jshape, mesh, rules), kind
         assert rec["memory"]["peak_bytes"] >= rec["memory"]["argument_bytes"]
         assert rec["cost"]["flops"] >= rec["model_flops"] / 8 * 0.5, kind
         assert rec["collectives"], kind
@@ -174,6 +197,38 @@ def test_moe_prefill_with_fsdp_experts_on_a_fake_mesh(monkeypatch, tmp_path):
                           out_dir=tmp_path)
     assert rec["status"] == "ok", rec.get("traceback")
     assert rec["rules_fsdp"]
+
+
+def test_moe_train_with_experts_over_data_on_a_fake_mesh(tmp_path):
+    """Llama-4 Maverick's ``moe_ep_mb4`` train cell (its experts over
+    "data", 4 microbatches of 64 rows) at its full widths, cut to 2
+    layers (one MoE layer; the reduced widths do not reproduce it), on a
+    fake (2, 4) mesh: it ends ``ok``.  The grad of the up-projections'
+    product came back from the down-projection's backward pass
+    batch-major under expert-major global strides, and the
+    up-projections' backward failed to merge it ("view size is not
+    compatible")."""
+    cfg = dataclasses.replace(
+        configs.get_config("llama4-maverick-400b-a17b"), n_layers=2)
+    rec = dryrun.run_cell(cfg.name, "train_4k", "fake", force=True,
+                          cfg=cfg, shape=SHAPES["train_4k"],
+                          mesh_shape=(2, 4), out_dir=tmp_path,
+                          variant="moe_ep_mb4")
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["strategy"]["microbatches"] == 4
+
+
+def test_decode_of_one_row_on_a_fake_mesh(tmp_path):
+    """Reduced Jamba's decode of one row (``long_500k``'s batch, which
+    the DP axis does not divide) on a fake (2, 4) mesh ends ``ok``: the
+    residual stream can reach its dense MLP as a pending sum, and the
+    MLP's result is then laid out replicated, not as a sum."""
+    cfg = configs.reduced(configs.get_config("jamba-v0.1-52b"))
+    shape = ShapeConfig("long_s", 512, 1, "decode")
+    rec = dryrun.run_cell(cfg.name, shape.name, "fake", force=True,
+                          cfg=cfg, shape=shape, mesh_shape=(2, 4),
+                          out_dir=tmp_path)
+    assert rec["status"] == "ok", rec.get("traceback")
 
 
 @pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "jamba-v0.1-52b"])
@@ -305,3 +360,236 @@ def test_import_leaves_no_process_state():
     out = subprocess.run([sys.executable, "-c", code], cwd=SRC,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+class _Inside(dryrun.StepRecorder):
+    """A StepRecorder that also keeps the largest storage made while a
+    wrapped function runs (:meth:`wrap`)."""
+
+    def __init__(self, *a, **k):
+        self.depth = self.largest = 0
+        super().__init__(*a, **k)
+
+    def _track(self, t):
+        new = t.untyped_storage()._cdata not in self._refs
+        super()._track(t)
+        if new and self.depth:
+            self.largest = max(self.largest, t.untyped_storage().nbytes())
+
+    def wrap(self, fn):
+        def inside(*a, **k):
+            self.depth += 1
+            try:
+                return fn(*a, **k)
+            finally:
+                self.depth -= 1
+        return inside
+
+
+FAKE_2X4 = AbstractMesh((2, 4), ("data", "model"))
+
+
+def _f32_shard(shape, spec) -> int:
+    return math.prod(NamedSharding(FAKE_2X4, jax.sharding.PartitionSpec(
+        *spec)).shard_shape(shape)) * 4
+
+
+def _largest_param_f32_shard(cfg, shape) -> int:
+    """The largest f32 shard of a param of reduced nemotron-4-340b, laid
+    out as the reference's ``FSDP_RULES`` lay it out."""
+    specs = jm.param_specs(jcfg.reduced(jcfg.get_config("nemotron-4-340b")))
+    return max(_f32_shard(s.shape, jsh.spec_for(s, FAKE_2X4, jsh.FSDP_RULES))
+               for s in jax.tree.leaves(
+                   specs, is_leaf=lambda x: hasattr(x, "logical_axes")))
+
+
+# F11's three causes: (arch, step, rules, where, the reference's shard)
+F11 = {
+    # the factored AdamW update under FSDP_RULES (nemotron's train_4k)
+    "factored_update": ("nemotron-4-340b", "train", "FSDP_RULES",
+                        ("training.optimizer", "_factored_update"),
+                        _largest_param_f32_shard),
+    # the loss chunk's f32 logits [B / dp, C, V / tp] (one microbatch)
+    "loss_chunk": ("qwen1.5-0.5b", "train", "DEFAULT_RULES",
+                   ("models.model", "_loss_chunk"),
+                   lambda cfg, shape: _f32_shard(
+                       (shape.global_batch, min(512, shape.seq_len),
+                        cfg.vocab), ("data", None, "model"))),
+    # the MLP's f32 hidden layer [B / dp, S, F / tp] in prefill
+    "mlp": ("nemotron-4-340b", "prefill", "DEFAULT_RULES",
+            ("models.layers", "mlp_apply"),
+            lambda cfg, shape: _f32_shard(
+                (shape.global_batch, shape.seq_len, cfg.d_ff),
+                ("data", None, "model"))),
+}
+
+
+@pytest.mark.parametrize("where", list(F11))
+def test_step_keeps_a_ranks_share_inside(where, monkeypatch):
+    """F11: the largest storage a rank's step makes inside the factored
+    update, the loss chunk and the MLP, on the fake (2, 4) mesh at
+    reduced widths, is at most twice the local shard the reference's
+    layout gives (its f32 temporaries hold one).  Before, DTensor gathered
+    the params for the update's factored outer product, the loss chunk's
+    vocab (and its gather's grad, the batch), and the MLP's hidden dim."""
+    import importlib
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shard_mod
+    arch, kind, rules, (mod, name), shard = F11[where]
+    cfg = configs.reduced(configs.get_config(arch))
+    shape = ShapeConfig(f"{kind}_s", 64, 32, kind)
+    monkeypatch.setattr(dryrun.shard_mod, "choose_rules",
+                        lambda *a, **k: getattr(shard_mod, rules))
+    monkeypatch.setitem(dryrun.TRAIN_OVERRIDES, cfg.name,
+                        dryrun.TRAIN_OVERRIDES[arch])
+    module = importlib.import_module(f"repro_torch.{mod}")
+    with dryrun.fake_world(8):
+        mesh = shard_mod.make_mesh((2, 4), ("data", "model"), "cpu")
+        fn, args, _ = dryrun.build_cell(cfg, shape, mesh)
+        rec = _Inside([t.to_local() for t in dryrun._leaves(args)
+                       if isinstance(t, DTensor)])
+        monkeypatch.setattr(module, name, rec.wrap(getattr(module, name)))
+        with rec:
+            fn(*args)
+    want = shard(cfg, shape)
+    assert 0 < rec.largest <= 2 * want, (rec.largest, want)
+
+
+# (arch, rules, its dry-run strategy, the param held to): a separate
+# embedding table with its vocab over "model", and under FSDP_RULES the
+# largest param (a stacked FFN weight, which the factored update runs on)
+WHOLE_PARAM_CASES = [("deepseek-coder-33b", "DEFAULT_RULES", False, "embed"),
+                     ("nemotron-4-340b", "FSDP_RULES", True, None)]
+
+
+@pytest.mark.parametrize("arch,rules,overrides,param", WHOLE_PARAM_CASES,
+                         ids=[c[0] for c in WHOLE_PARAM_CASES])
+def test_train_step_moves_no_whole_parameter(arch, rules, overrides, param,
+                                             monkeypatch):
+    """A train step of a reduced arch as rank 0 of a fake (2, 4) mesh
+    issues no collective as large as a parameter at its global shape
+    (reduced DeepSeek-Coder's embedding table; the largest of reduced
+    nemotron-4-340b's under ``FSDP_RULES`` with its dry-run strategy, a
+    stacked FFN weight).
+    Each rank looks up the tokens of its vocab slice and the table's grad
+    stays on the slice, and the factored update runs on each rank's shard.
+    Before, DTensor's ``index`` gathered the whole table, the grad of the
+    whole table was summed over all ranks, and the update gathered whole
+    params for its factored outer product."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.configs.base import torch_dtype
+    from repro_torch.distributed import sharding as shard_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.models.modules import tree_leaves
+    cfg = configs.reduced(configs.get_config(arch))
+    shape = ShapeConfig("train_s", 32, 32 if overrides else 4, "train")
+    monkeypatch.setattr(dryrun.shard_mod, "choose_rules",
+                        lambda *a, **k: getattr(shard_mod, rules))
+    if overrides:
+        monkeypatch.setitem(dryrun.TRAIN_OVERRIDES, cfg.name,
+                            dryrun.TRAIN_OVERRIDES[arch])
+    with dryrun.fake_world(8):
+        mesh = shard_mod.make_mesh((2, 4), ("data", "model"), "cpu")
+        fn, args, _ = dryrun.build_cell(cfg, shape, mesh)
+        rec = dryrun.StepRecorder([t.to_local() for t in dryrun._leaves(args)
+                                   if isinstance(t, DTensor)])
+        with rec:
+            fn(*args)
+    specs = model_mod.param_specs(cfg)
+    whole_bytes = max(math.prod(s.shape) * torch_dtype(s.dtype).itemsize
+                      for s in tree_leaves(specs[param] if param else specs))
+    assert rec.records
+    assert max(b for _, b, _ in rec.records) < whole_bytes, sorted(
+        r for r in rec.records if r[1] >= whole_bytes)
+
+
+def test_train_step_moves_only_all_reduces_under_tensor_parallelism(
+        monkeypatch):
+    """F12: a train step of one layer of Qwen1.5-0.5B at its published
+    widths under ``DEFAULT_RULES`` on a fake (2, 4) mesh (heads, hidden
+    dim and vocab over "model", the batch over "data": Megatron's layout)
+    moves only all-reduces: the partial sums of the row-parallel products,
+    the vocab-parallel loss and lookup, and the grads' DP sums.  Before,
+    the attention's output projection left its pending sum in the
+    residual stream, the next norm scattered the rows over "model", and
+    the backward pass gathered whole weights (the output projection's) to
+    meet them, then all-reduced their whole grads over "data"."""
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as shard_mod
+    cfg = dataclasses.replace(configs.get_config("qwen1.5-0.5b"), n_layers=1)
+    shape = ShapeConfig("train_s", 1024, 4, "train")
+    monkeypatch.setattr(dryrun.shard_mod, "choose_rules",
+                        lambda *a, **k: shard_mod.DEFAULT_RULES)
+    with dryrun.fake_world(8):
+        mesh = shard_mod.make_mesh((2, 4), ("data", "model"), "cpu")
+        fn, args, _ = dryrun.build_cell(cfg, shape, mesh)
+        rec = dryrun.StepRecorder([t.to_local() for t in dryrun._leaves(args)
+                                   if isinstance(t, DTensor)])
+        with rec:
+            fn(*args)
+    assert rec.records
+    assert {op for op, _, _ in rec.records} == {"all_reduce"}, sorted(
+        r for r in rec.records if r[0] != "all_reduce")
+
+
+def test_row_parallel_reduces_the_weight_grad_at_its_shard():
+    """F12: attention's output projection where the heads are whole on
+    each rank (kv heads that "model" does not divide, deepseek's and
+    qwen2-vl's): x replicated over "model" times w sharded on its rows
+    over "model".  ``modules.row_parallel`` cuts x to w's row shards
+    first, so w's grad is computed at its shard and summed over "data" at
+    its shard; ``x @ w`` made it whole on every rank and all-reduced it
+    whole (98 MiB a layer at deepseek's `train_4k`)."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    from repro_torch.distributed import sharding as shard_mod
+    from repro_torch.models.modules import row_parallel, settled
+    meta = dict(dtype=torch.bfloat16, device="meta")
+    with dryrun.fake_world(8):
+        mesh = shard_mod.make_mesh((2, 4), ("data", "model"), "cpu")
+        x = DTensor.from_local(torch.empty(4, 20, 96, **meta), mesh,
+                               [Shard(0), Replicate()]).requires_grad_()
+        w = DTensor.from_local(torch.empty(24, 56, **meta), mesh,
+                               [Replicate(), Shard(0)]).requires_grad_()
+        rec = dryrun.StepRecorder()
+        with rec:
+            y = settled(row_parallel(x, w))
+            _, gw = torch.autograd.grad(y.sum(), (x, w))
+            gw = gw.redistribute(mesh, w.placements)
+    whole, shard = 96 * 56 * 2, 24 * 56 * 2
+    over_data = [b for op, b, g in rec.records if g == 2]
+    assert over_data == [shard], rec.records
+    assert all(b != whole for _, b, _ in rec.records), rec.records
+    assert tuple(gw.to_local().shape) == (24, 56)
+
+
+def test_prefill_collects_the_caches_as_cache_shards():
+    """F11's fourth cause: where "model" does not divide the kv heads
+    (reduced nemotron-4-340b's 2 on the fake (2, 4) mesh, as its 8 on
+    (16, 16)), attention runs with the heads whole on each rank, and each
+    layer's k and v were kept so until the caches were stacked (36 GiB a
+    rank over nemotron's 96 layers at ``prefill_32k``).  They are laid out
+    as the decode cache's shards as they are collected (the
+    ``kv_constraint`` that the dry run's prefill passes): each stacked
+    cache a rank holds is [G, B / dp, S, KH, Dh / tp], the reference's
+    ``kv_cache_sharding`` shard."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.distributed import sharding as shard_mod
+    from repro_torch.models import model as model_mod
+    from repro_torch.training.train import batch_constraint
+    cfg = configs.reduced(configs.get_config("nemotron-4-340b"))
+    assert cfg.n_kv_heads % 4
+    shape = ShapeConfig("prefill_s", 64, 8, "prefill")
+    with dryrun.fake_world(8):
+        mesh = shard_mod.make_mesh((2, 4), ("data", "model"), "cpu")
+        _, (params, batch), _ = dryrun.build_cell(cfg, shape, mesh)
+        with torch.no_grad(), implicit_replication():
+            _, _, kvs = model_mod.forward(
+                cfg, params, batch, collect_kv=True,
+                act_constraint=batch_constraint(mesh),
+                kv_constraint=shard_mod.kv_constraint(mesh))
+    groups = cfg.n_layers // model_mod.period_of(cfg)
+    for kv in kvs:
+        for t in kv:
+            assert tuple(t.to_local().shape) == (
+                groups, shape.global_batch // 2, shape.seq_len,
+                cfg.n_kv_heads, cfg.head_dim // 4)
